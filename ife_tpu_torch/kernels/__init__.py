@@ -1,0 +1,41 @@
+"""Hand-written CUDA kernels for the hot passes (sources in
+``ife_tpu_torch/csrc``, built with nvcc for sm_90a at first use).
+
+Each wrapper launches its kernel for a CUDA tensor and runs its plain
+PyTorch twin, in the same module, for a CPU tensor; ``LAUNCHES`` counts the
+kernel launches per kernel. Counterparts of ife_tpu/kernels/fused.py:
+
+  fused_hessian_eig_stream, fused_hessian_eig -> csrc/hessian_eig.cu
+  fused_normalized_conv_sweep                 -> csrc/normalized_conv.cu
+  fused_features8_post_stream                 -> csrc/features8_post.cu
+  fused_features8_sweep,
+  fused_features8_xs_stream                   -> csrc/features8_sweep.cu
+
+plus fused_smooth_yz (csrc/normalized_conv.cu), the y/z passes ahead of
+the xs-stream kernel. ife_tpu's fused_features8 dispatcher is torch code
+here: ops.features.fused_features8.
+"""
+from ife_tpu_torch.kernels._build import LAUNCHES, reset_launches  # noqa: F401
+from ife_tpu_torch.kernels.features8_post import (  # noqa: F401
+    features8_post_plain,
+    fused_features8_post_stream,
+)
+from ife_tpu_torch.kernels.features8_sweep import (  # noqa: F401
+    features8_sweep_plain,
+    features8_xs_stream_plain,
+    fused_features8_sweep,
+    fused_features8_xs_stream,
+    sweep_fits,
+    xs_stream_fits,
+)
+from ife_tpu_torch.kernels.hessian_eig import (  # noqa: F401
+    fused_hessian_eig,
+    fused_hessian_eig_stream,
+    hessian_eig_plain,
+)
+from ife_tpu_torch.kernels.normalized_conv import (  # noqa: F401
+    fused_normalized_conv_sweep,
+    fused_smooth_yz,
+    normalized_conv_plain,
+    smooth_yz_plain,
+)

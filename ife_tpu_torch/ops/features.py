@@ -1,0 +1,221 @@
+"""The flagship 8-channel emphysema feature pass (counterpart of
+ife_tpu/ops/features.py).
+
+Reference: include/ife/Filters/ImageToEmphysemaFeaturesFilter.{h,hxx}.
+
+Channel order (reference tools/ExtractFeatures.cxx:126-130):
+  0 GaussianBlur          masked normalized-convolution smoothing
+  1 GradientMagnitude     central-difference |grad| of (0)
+  2 Eigenvalue1           Hessian eigenvalues of (0), |e3|<=|e2|<=|e1|
+  3 Eigenvalue2
+  4 Eigenvalue3
+  5 LaplacianOfGaussian   e1+e2+e3
+  6 GaussianCurvature     e1*e2*e3
+  7 FrobeniusNorm         sqrt(e1^2+e2^2+e3^2)
+
+All channels are zeroed outside the (binary) mask with a select: the
+normalized convolution divides without epsilon, so its NaN lives outside
+the mask, and NaN * 0 would stay NaN.
+
+Two forms, chosen by ``features8_auto``/``features8_auto_channels`` from
+the device of the image, as ife_tpu chooses by platform:
+  * ``fused_features8`` — the kernels (polynomial eigen path), one of three
+    branches by the x radius (``features8_dispatch_branch``): what a CUDA
+    tensor runs;
+  * ``features8`` — the plain composition of ops (trig eigen path with the
+    reference's diagonal branch): what a CPU tensor runs.
+"""
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+
+from ife_tpu_torch.kernels.features8_post import fused_features8_post_stream
+from ife_tpu_torch.kernels.features8_sweep import (
+    fused_features8_sweep, fused_features8_xs_stream, sweep_fits,
+    xs_stream_fits,
+)
+from ife_tpu_torch.kernels.hessian_eig import fused_hessian_eig_stream
+from ife_tpu_torch.kernels.normalized_conv import (
+    fused_normalized_conv_sweep, fused_smooth_yz,
+)
+from ife_tpu_torch.ops.eigen import eigenvalue_features
+from ife_tpu_torch.ops.stencil import (
+    gradient_magnitude,
+    hessian,
+    normalized_gaussian_convolution,
+)
+
+FEATURE_NAMES = (
+    "GaussianBlur",
+    "GradientMagnitude",
+    "Eigenvalue1",
+    "Eigenvalue2",
+    "Eigenvalue3",
+    "LaplacianOfGaussian",
+    "GaussianCurvature",
+    "FrobeniusNorm",
+)
+NUM_FEATURES = 8  # reference ImageToEmphysemaFeaturesFilter.h:62
+
+# the x radii (voxels) up to which ife_tpu sends features8 to its line-sweep
+# kernel (ife_tpu/ops/features.py _SWEEP_RX_MAX) and to its xs-stream kernel
+# (ife_tpu/kernels/fused.py _XS_RX_MAX); both were measured on a TPU and are
+# kept so the port runs the same kernels at the same scales
+_SWEEP_RX_MAX = 10
+_XS_RX_MAX = 20
+
+# mask dtypes torch.clamp has no kernel for, and the dtype they clamp in
+_CLAMP_AS = {torch.bool: torch.uint8, torch.uint16: torch.int32,
+             torch.uint32: torch.int64, torch.uint64: torch.int64}
+
+
+def clamp_mask(mask: torch.Tensor) -> torch.Tensor:
+    """Clamp a labeled mask to binary {0,1} (labels 2,3,... -> 1), the
+    itk::ClampImageFilter(0,1) before every feature pass (reference
+    tools/ExtractFeatures.cxx:98-104)."""
+    if mask.dtype in _CLAMP_AS:
+        mask = mask.to(_CLAMP_AS[mask.dtype])
+    return torch.clamp(mask, 0, 1)
+
+
+def features8(
+    image: torch.Tensor,
+    mask: torch.Tensor,
+    sigma: float,
+    spacing: Sequence[float] = (1.0, 1.0, 1.0),
+    truncate: float = 4.5,
+) -> torch.Tensor:
+    """8-channel feature volume at one scale, composed from the plain ops.
+    Returns (X, Y, Z, 8).
+
+    `mask` may be any integer/float labels; it is clamped to {0,1} and used
+    both as the normalized-convolution certainty and the output mask, as in
+    the reference DAG (ImageToEmphysemaFeaturesFilter.hxx:14-55).
+    """
+    m = clamp_mask(mask)
+    mf = m.to(image.dtype)
+
+    smoothed = normalized_gaussian_convolution(image, mf, sigma, spacing, truncate)
+    gm = gradient_magnitude(smoothed, spacing)
+    eig = eigenvalue_features(hessian(smoothed, spacing))  # (..., 6)
+
+    feats = torch.cat([smoothed[..., None], gm[..., None], eig], dim=-1)
+    inside = (m != 0)[..., None]
+    return torch.where(inside, feats, torch.zeros((), dtype=image.dtype,
+                                                  device=image.device))
+
+
+def features8_dispatch_branch(sigma, spacing, shape, truncate=4.5) -> str:
+    """The kernel branch fused_features8 takes for this scale, by the x
+    radius rx = ceil(truncate * sigma / spacing[0]) as in ife_tpu:
+      * "sweep" (rx <= 10): fused_features8_sweep, the whole pass in one
+        kernel;
+      * "xs_stream" (rx <= 20): fused_smooth_yz, then
+        fused_features8_xs_stream (x pass, divide and tail in one kernel);
+      * "nc_conv+post": fused_normalized_conv_sweep, then
+        fused_features8_post_stream.
+    `shape` does not matter on the card; a branch whose rings overflow a
+    block's shared memory (sweep_fits, xs_stream_fits) passes the scale
+    on to the next."""
+    rx = math.ceil(truncate * float(sigma) / float(spacing[0]))
+    if rx <= _SWEEP_RX_MAX and sweep_fits(sigma, spacing, truncate):
+        return "sweep"
+    if rx <= _XS_RX_MAX and xs_stream_fits(sigma, spacing, truncate):
+        return "xs_stream"
+    return "nc_conv+post"
+
+
+def normalized_convolution_auto(image, certainty, sigma,
+                                spacing=(1.0, 1.0, 1.0), truncate=4.5):
+    """Masked (normalized) Gaussian convolution: the normalized_conv kernel
+    on CUDA, normalized_gaussian_convolution (its plain twin) on the CPU.
+
+    The certainty is used RAW (no clamp): the reference filter consumes the
+    certainty image as given (NormalizedGaussianConvolutionImageFilter.hxx
+    :40-63), and G*(c*f)/G*c is not invariant to per-voxel clipping of c.
+    Only the features8 paths clamp, mirroring the reference's
+    ClampImageFilter(0,1) there."""
+    return fused_normalized_conv_sweep(
+        image, certainty.to(image.dtype).contiguous(), float(sigma),
+        tuple(spacing), truncate)
+
+
+def fused_features8(image, mask, sigma, spacing=(1.0, 1.0, 1.0),
+                    truncate=4.5, stack=True):
+    """features8 through the kernels (counterpart of ife_tpu's
+    kernels.fused.fused_features8 dispatcher together with its sweep
+    branch in features8_auto_channels), on the branch
+    features8_dispatch_branch names. Returns (8, X, Y, Z) when stack, else
+    a tuple of 8. CUDA tensors run the CUDA kernels; CPU tensors run the
+    kernels' plain twins."""
+    sigma, spacing = float(sigma), tuple(spacing)
+    branch = features8_dispatch_branch(sigma, spacing, image.shape, truncate)
+    if branch == "sweep":
+        # the sweep clamps the mask itself: no clamp pass over the volume
+        if mask.dtype in _CLAMP_AS:
+            mask = mask.to(_CLAMP_AS[mask.dtype])
+        return fused_features8_sweep(
+            image, mask.to(image.dtype).contiguous(), sigma, spacing,
+            truncate, stack=stack)
+    mf = clamp_mask(mask).to(image.dtype).contiguous()
+    if branch == "xs_stream":
+        num, den = fused_smooth_yz(image, mf, sigma, spacing, truncate)
+        return fused_features8_xs_stream(num, den, mf, sigma, spacing,
+                                         truncate, stack=stack)
+    s = fused_normalized_conv_sweep(image, mf, sigma, spacing, truncate)
+    return fused_features8_post_stream(s, mf, spacing, stack=stack)
+
+
+def features8_auto_channels(image, mask, sigma, spacing=(1.0, 1.0, 1.0),
+                            truncate=4.5):
+    """The features8 pass as a TUPLE of 8 (X, Y, Z) channel tensors, without
+    a channel-last stack (at 512^3 that is a 4.3 GB copy). A CUDA tensor
+    runs the kernels (fused_features8); a CPU tensor the plain composition
+    of ops (features8), as ife_tpu runs XLA ops off the TPU."""
+    if image.is_cuda:
+        return fused_features8(image, mask, sigma, spacing, truncate,
+                               stack=False)
+    return features8(image, mask, float(sigma), tuple(spacing),
+                     truncate).unbind(-1)
+
+
+def features8_auto(image, mask, sigma, spacing=(1.0, 1.0, 1.0), truncate=4.5):
+    """features8_auto_channels stacked channel-last: (X, Y, Z, 8), the
+    layout of features8."""
+    if image.is_cuda:
+        return torch.stack(
+            features8_auto_channels(image, mask, sigma, spacing, truncate),
+            dim=-1)
+    return features8(image, mask, float(sigma), tuple(spacing), truncate)
+
+
+def multiscale_features(
+    image: torch.Tensor,
+    mask: torch.Tensor,
+    sigmas: Sequence[float],
+    spacing: Sequence[float] = (1.0, 1.0, 1.0),
+    truncate: float = 4.5,
+) -> torch.Tensor:
+    """Features at several scales, stacked: (X, Y, Z, n_scales, 8). The
+    reference loops scales at the tool level (tools/MakeBag.cxx:405-412)."""
+    per_scale = [
+        features8_auto(image, mask, float(s), spacing, truncate)
+        for s in sigmas
+    ]
+    return torch.stack(per_scale, dim=-2)
+
+
+def hessian_eig_features(
+    image: torch.Tensor, spacing: Sequence[float] = (1.0, 1.0, 1.0)
+) -> torch.Tensor:
+    """Unsmoothed Hessian -> 6 eigen features, (X, Y, Z, 6). The benchmark
+    hot path ('Hessian+eig voxels/sec'): the hessian_eig kernel on a CUDA
+    tensor, the plain ops on a CPU tensor."""
+    if image.is_cuda:
+        return torch.stack(
+            fused_hessian_eig_stream(image, tuple(spacing), stack=False),
+            dim=-1)
+    return eigenvalue_features(hessian(image, spacing))

@@ -1,0 +1,178 @@
+"""The port's CLI against ife_tpu's on the same tiny NIfTI files: output
+files agree in f32 within the per-channel budget of docs/design.md; plus the
+package-level contracts (no JAX import, TF32 off, `python -m` entry)."""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from ife_tpu.cli.main import main as j_main
+from ife_tpu.core.volume import Volume as JVolume
+from ife_tpu.core.volume import sphere_mask, synthetic_ct
+from ife_tpu.io import read_volume as j_read, write_volume as j_write
+from ife_tpu.ops.features import FEATURE_NAMES
+from ife_tpu_torch.cli import commands as TC
+from ife_tpu_torch.cli.main import main as t_main
+from ife_tpu_torch.io import read_volume as t_read
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SHAPE = (16, 14, 12)
+SPACING = (0.78, 0.78, 1.0)
+# docs/design.md:495-504 per-channel f32 bounds, relative to channel scale
+F32_BUDGET = dict(zip(FEATURE_NAMES, (1e-6, 2e-6, 1e-5, 1e-5, 2.4e-5, 1.5e-5,
+                                      1.5e-5, 1.3e-5)))
+HESS_NAMES = ("Eigenvalue1", "Eigenvalue2", "Eigenvalue3",
+              "LaplacianOfGaussian", "GaussianCurvature", "FrobeniusNorm")
+
+
+@pytest.fixture(scope="module")
+def workdir(tmp_path_factory):
+    d = tmp_path_factory.mktemp("torch_cli")
+    img = synthetic_ct(SHAPE, seed=7)
+    j_write(str(d / "img.nii.gz"), JVolume(img.data, spacing=SPACING))
+    # labels 0/1/2: the features8 paths clamp them
+    mask = np.asarray(sphere_mask(SHAPE, 0.42).data).astype(np.uint8)
+    mask[: SHAPE[0] // 2] *= 2
+    j_write(str(d / "mask.nii.gz"), JVolume(jnp.asarray(mask), spacing=SPACING))
+    # a noise image (no exactly repeated Hessian eigenvalues) and a
+    # continuous, unclamped certainty
+    rng = np.random.default_rng(3)
+    noise = (rng.standard_normal(SHAPE) * 200.0 - 600.0).astype(np.float32)
+    j_write(str(d / "noise.nii.gz"), JVolume(jnp.asarray(noise), spacing=SPACING))
+    cert = rng.uniform(0.0, 2.0, SHAPE).astype(np.float32)
+    cert[:, :, :3] = 0.0
+    j_write(str(d / "cert.nii.gz"), JVolume(jnp.asarray(cert), spacing=SPACING))
+    return d
+
+
+def _run(main, *argv):
+    rc = main([str(a) for a in argv])
+    assert rc == 0, argv
+
+
+def _rel(got, want):
+    return np.abs(got - want).max() / max(np.abs(want).max(), 1.0)
+
+
+def _load_pair(d, t_name, j_name):
+    t = t_read(str(d / t_name))
+    j = j_read(str(d / j_name))
+    assert t.spacing == j.spacing and t.origin == j.origin
+    return t.numpy().astype(np.float64), np.asarray(j.data, np.float64)
+
+
+def _sorted_eig_err(d, t_fmt, j_fmt, names):
+    t = np.sort(np.stack([t_read(str(d / t_fmt.format(n))).numpy() for n in names]), 0)
+    j = np.sort(np.stack([np.asarray(j_read(str(d / j_fmt.format(n))).data)
+                          for n in names]), 0)
+    return _rel(t.astype(np.float64), j.astype(np.float64))
+
+
+def test_extract_features_matches_ife_tpu(workdir):
+    d = workdir
+    args = ["-i", d / "img.nii.gz", "-m", d / "mask.nii.gz", "-s", "0.6", "1.2"]
+    _run(t_main, "extract-features", *args, "-o", d / "t_feat")
+    _run(j_main, "extract-features", *args, "-o", d / "j_feat")
+    for s in ("0.6", "1.2"):
+        for name in FEATURE_NAMES:
+            t, j = _load_pair(d, f"t_feat_scale_{s}{name}.nii.gz",
+                              f"j_feat_scale_{s}{name}.nii.gz")
+            assert t.shape == SHAPE
+            if name not in ("Eigenvalue1", "Eigenvalue2", "Eigenvalue3"):
+                assert _rel(t, j) < F32_BUDGET[name], (s, name)
+        err = _sorted_eig_err(d, f"t_feat_scale_{s}{{}}.nii.gz",
+                              f"j_feat_scale_{s}{{}}.nii.gz", FEATURE_NAMES[2:5])
+        assert err < F32_BUDGET["Eigenvalue1"], (s, err)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_hessian_features_match_ife_tpu(workdir, fused):
+    d = workdir
+    args = ["-i", d / "noise.nii.gz", "-m", d / "mask.nii.gz"]
+    tag = "f" if fused else "p"
+    _run(t_main, "hessian-features", *args, "-o", d / f"t_hess{tag}_",
+         *(["--fused"] if fused else []))
+    if not (d / "j_hess_Eigenvalue1.nii.gz").exists():
+        _run(j_main, "hessian-features", *args, "-o", d / "j_hess_")
+    for name in HESS_NAMES[3:]:
+        t, j = _load_pair(d, f"t_hess{tag}_{name}.nii.gz", f"j_hess_{name}.nii.gz")
+        assert _rel(t, j) < 1e-5, name
+    err = _sorted_eig_err(d, f"t_hess{tag}_{{}}.nii.gz", "j_hess_{}.nii.gz",
+                          HESS_NAMES[:3])
+    assert err < 1e-5, err
+
+
+@pytest.mark.parametrize("mask_output", [False, True])
+def test_masked_normalized_convolution_matches_ife_tpu(workdir, mask_output):
+    d = workdir
+    flag = ["--mask-output"] if mask_output else []
+    args = ["-i", d / "img.nii.gz", "-c", d / "cert.nii.gz", "-s", "0.9", *flag]
+    _run(t_main, "masked-normalized-convolution", *args, "-o", d / f"t_nc{mask_output}")
+    _run(j_main, "masked-normalized-convolution", *args, "-o", d / f"j_nc{mask_output}")
+    t, j = _load_pair(d, f"t_nc{mask_output}scale_0.9.nii.gz",
+                      f"j_nc{mask_output}scale_0.9.nii.gz")
+    assert np.isfinite(t).all()
+    assert _rel(t, j) < F32_BUDGET["GaussianBlur"]
+
+
+def test_gradient_features_matches_ife_tpu(workdir):
+    d = workdir
+    args = ["-i", d / "img.nii.gz", "-m", d / "mask.nii.gz"]
+    _run(t_main, "gradient-features", *args, "-o", d / "t_grad.nii.gz")
+    _run(j_main, "gradient-features", *args, "-o", d / "j_grad.nii.gz")
+    t, j = _load_pair(d, "t_grad.nii.gz", "j_grad.nii.gz")
+    assert _rel(t, j) < F32_BUDGET["GradientMagnitude"]
+
+
+def test_sharded_is_refused_and_only_the_slice_is_registered(workdir, capsys):
+    d = workdir
+    rc = t_main(["extract-features", "-i", str(d / "img.nii.gz"), "-m",
+                 str(d / "mask.nii.gz"), "-o", str(d / "x"), "-s", "1", "--sharded"])
+    assert rc == 1
+    assert "not yet ported" in capsys.readouterr().err
+    assert set(TC.REGISTRY) == {"extract-features", "hessian-features",
+                                "masked-normalized-convolution",
+                                "gradient-features"}
+
+
+def test_python_m_entry_point_runs(workdir):
+    d = workdir
+    res = subprocess.run(
+        [sys.executable, "-m", "ife_tpu_torch", "extract-features",
+         "-i", str(d / "img.nii.gz"), "-m", str(d / "mask.nii.gz"),
+         "-o", str(d / "pm"), "-s", "1.5"],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": REPO})
+    assert res.returncode == 0, res.stderr
+    assert "Processing scale 1.5" in res.stdout
+    for name in FEATURE_NAMES:
+        assert (d / f"pm_scale_1.5{name}.nii.gz").exists()
+
+
+def test_the_package_never_imports_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import ife_tpu_torch, ife_tpu_torch.cli.main\n"
+        "for m in pkgutil.walk_packages(ife_tpu_torch.__path__, 'ife_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'ife_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": REPO})
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def test_tf32_is_off_after_import():
+    import ife_tpu_torch  # noqa: F401
+
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False

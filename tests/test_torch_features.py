@@ -1,0 +1,214 @@
+"""The slice as a whole: ife_tpu_torch.ops.features against
+ife_tpu.ops.features on the same numpy inputs — f64 at <= 1e-9 (eigenvalue
+channels as value-sorted triples), and f32 within the per-channel error
+budget of docs/design.md "f32 per-channel error budget"."""
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from ife_tpu.core.volume import sphere_mask as j_sphere_mask
+from ife_tpu.core.volume import synthetic_ct as j_synthetic_ct
+from ife_tpu.ops import features as JF
+from ife_tpu_torch.ops import features as TF
+
+torch.set_num_threads(1)
+
+SHAPES = [(16, 16, 16), (13, 12, 11)]
+SPACING = (0.78, 0.78, 1.0)
+TOL = 1e-9
+# docs/design.md:495-504, asserted bounds per channel (f32 vs the f64
+# oracle, relative to each channel's own scale)
+F32_BUDGET = (1e-6, 2e-6, 1e-5, 1e-5, 2.4e-5, 1.5e-5, 1.5e-5, 1.3e-5)
+
+
+def _inputs(shape, seed=5, radius_frac=0.45):
+    img = np.array(j_synthetic_ct(shape, seed=seed, dtype=jnp.float64).data)
+    mask = np.array(j_sphere_mask(shape, radius_frac).data)
+    return img, mask
+
+
+def _errors(got, want, eig):
+    """Per-channel max|got-want| / max(max|want|, 1); channels listed in
+    `eig` compared as value-sorted triples (ties swap channels legitimately).
+    got/want: (..., C) arrays."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    errs = []
+    gs = np.sort(got[..., list(eig)], -1) if eig else None
+    ws = np.sort(want[..., list(eig)], -1) if eig else None
+    for c in range(want.shape[-1]):
+        if c in eig:
+            k = list(eig).index(c)
+            g, w = gs[..., k], ws[..., k]
+        else:
+            g, w = got[..., c], want[..., c]
+        errs.append(np.abs(g - w).max() / max(np.abs(w).max(), 1.0))
+    return errs
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("sigma", [0.6, 1.2, 2.4])
+def test_features8_auto_channels_match_ife_tpu_f64(shape, sigma):
+    img, mask = _inputs(shape)
+    got = TF.features8_auto_channels(torch.from_numpy(img), torch.from_numpy(mask),
+                                     sigma, SPACING)
+    assert len(got) == 8 and all(g.shape == shape for g in got)
+    want = np.asarray(JF.features8_auto(jnp.asarray(img), jnp.asarray(mask),
+                                        sigma, SPACING))
+    errs = _errors(torch.stack(got, -1).numpy(), want, (2, 3, 4))
+    assert max(errs) <= TOL, errs
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("sigma", [0.6, 1.2, 2.4, 4.8])
+def test_fused_features8_matches_ife_tpu_fused_features8(shape, sigma):
+    # the kernel branches CUDA tensors take (sweep at sigma 0.6 and 1.2,
+    # y/z smoothing -> xs stream at 2.4, nc -> post at 4.8), run on the CPU
+    # through the kernels' plain twins, against ife_tpu's fused_features8
+    # with its Pallas post kernel in interpret mode
+    from ife_tpu.kernels.fused import fused_features8 as j_fused_features8
+
+    img, mask = _inputs(shape)
+    got = TF.fused_features8(torch.from_numpy(img), torch.from_numpy(mask),
+                             sigma, SPACING)
+    assert got.shape == (8,) + shape
+    want = np.asarray(j_fused_features8(jnp.asarray(img), jnp.asarray(mask),
+                                        sigma, SPACING, interpret=True))
+    errs = _errors(np.moveaxis(got.numpy(), 0, -1), np.moveaxis(want, 0, -1),
+                   (2, 3, 4))
+    assert max(errs) <= TOL, errs
+    if sigma > 2.4:
+        # radius 28 voxels on a 13-16 voxel volume: the smoothed field is
+        # nearly flat, its second differences ~1e-4 of it, and both f32
+        # paths sit at their rounding floor, where a ratio of the two
+        # errors measures rounding luck, not accuracy
+        return
+    # f32: no less accurate than ife_tpu's f32 kernel path against f64, up
+    # to a factor 2 (the repo's criterion, tests/test_kernels.py)
+    got32 = TF.fused_features8(torch.from_numpy(img).float(),
+                               torch.from_numpy(mask), sigma, SPACING)
+    want32 = np.asarray(j_fused_features8(jnp.asarray(img, jnp.float32),
+                                          jnp.asarray(mask), sigma, SPACING,
+                                          interpret=True))
+    e32 = _errors(np.moveaxis(got32.numpy(), 0, -1), np.moveaxis(want, 0, -1),
+                  (2, 3, 4))
+    j32 = _errors(np.moveaxis(want32, 0, -1), np.moveaxis(want, 0, -1), (2, 3, 4))
+    assert all(e <= max(2 * j, 1e-6) for e, j in zip(e32, j32)), (e32, j32)
+
+
+def test_features8_auto_f32_within_the_design_budget():
+    # the budget's own setting (tests/test_features.py): 32^3 golden with a
+    # labeled uint16 mask, sigma=1, channels compared as they stand
+    img, mask = _inputs((32, 32, 32), seed=11, radius_frac=0.38)
+    mask = mask.astype(np.uint16)
+    mask[:16] *= 2
+    got = TF.features8_auto(torch.from_numpy(img).float(), torch.from_numpy(mask),
+                            1.0, SPACING)
+    assert got.dtype == torch.float32
+    want = np.asarray(JF.features8(jnp.asarray(img), jnp.asarray(mask), 1.0, SPACING))
+    errs = _errors(got.numpy(), want, ())
+    assert all(e < b for e, b in zip(errs, F32_BUDGET)), errs
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_features8_plain_ops_match_ife_tpu_f64(shape):
+    img, mask = _inputs(shape)
+    got = TF.features8(torch.from_numpy(img), torch.from_numpy(mask), 1.2, SPACING)
+    want = np.asarray(JF.features8(jnp.asarray(img), jnp.asarray(mask), 1.2, SPACING))
+    assert got.shape == shape + (8,)
+    assert max(_errors(got.numpy(), want, (2, 3, 4))) <= TOL
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_hessian_eig_features_match_ife_tpu(shape):
+    img, _ = _inputs(shape, seed=6)
+    got = TF.hessian_eig_features(torch.from_numpy(img), SPACING)
+    want = np.asarray(JF.hessian_eig_features(jnp.asarray(img), SPACING))
+    assert got.shape == shape + (6,)
+    assert max(_errors(got.numpy(), want, (0, 1, 2))) <= TOL
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_hessian_eig_f32_as_accurate_as_ife_tpu(shape):
+    # the repo's criterion (tests/test_kernels.py): no farther from the f64
+    # result than ife_tpu's f32 path, up to a factor 2 — for the plain ops
+    # (CPU path) and the kernel's twin (polynomial eigen path). A noise
+    # input, as bench.py uses, has no exactly repeated eigenvalues, whose
+    # sqrt(ulp) split would only compare two implementations' rounding luck
+    img = np.random.default_rng(6).standard_normal(shape) * 200.0 - 600.0
+    want = np.asarray(JF.hessian_eig_features(jnp.asarray(img), SPACING))
+    j32 = _errors(np.asarray(JF.hessian_eig_features(
+        jnp.asarray(img, jnp.float32), SPACING)), want, (0, 1, 2))
+    x32 = torch.from_numpy(img).float()
+    from ife_tpu_torch.kernels import fused_hessian_eig
+
+    for got in (TF.hessian_eig_features(x32, SPACING).numpy(),
+                np.moveaxis(fused_hessian_eig(x32, SPACING).numpy(), 0, -1)):
+        e32 = _errors(got, want, (0, 1, 2))
+        assert all(e <= max(2 * j, 1e-6) for e, j in zip(e32, j32)), (e32, j32)
+
+
+def test_multiscale_features_match_ife_tpu():
+    img, mask = _inputs((13, 12, 11))
+    got = TF.multiscale_features(torch.from_numpy(img), torch.from_numpy(mask),
+                                 [0.6, 1.2], SPACING)
+    want = np.asarray(JF.multiscale_features(jnp.asarray(img), jnp.asarray(mask),
+                                             [0.6, 1.2], SPACING))
+    assert got.shape == want.shape == (13, 12, 11, 2, 8)
+    for s in range(2):
+        assert max(_errors(got[..., s, :].numpy(), want[..., s, :], (2, 3, 4))) <= TOL
+
+
+def test_normalized_convolution_auto_uses_the_raw_certainty():
+    img, _ = _inputs((13, 12, 11))
+    c = np.random.default_rng(7).uniform(0.0, 3.0, img.shape)  # not clamped
+    got = TF.normalized_convolution_auto(torch.from_numpy(img), torch.from_numpy(c),
+                                         1.2, SPACING).numpy()
+    want = np.asarray(JF.normalized_convolution_auto(jnp.asarray(img), jnp.asarray(c),
+                                                     1.2, SPACING))
+    assert np.abs(got - want).max() / np.abs(want).max() <= TOL
+
+
+def test_outside_the_mask_is_zero_not_nan():
+    # a mask far smaller than the volume: the no-epsilon divide is NaN in
+    # the corners, and every channel must still be exactly 0 there
+    img, mask = _inputs((16, 16, 16), radius_frac=0.2)
+    got = TF.features8_auto(torch.from_numpy(img), torch.from_numpy(mask), 0.6, SPACING)
+    assert bool(torch.isfinite(got).all())
+    assert bool((got[torch.from_numpy(mask) == 0] == 0).all())
+
+
+def test_features8_auto_is_the_stacked_channels():
+    img, mask = _inputs((9, 8, 7))
+    x, m = torch.from_numpy(img), torch.from_numpy(mask)
+    assert torch.equal(TF.features8_auto(x, m, 1.0, SPACING),
+                       torch.stack(TF.features8_auto_channels(x, m, 1.0, SPACING), -1))
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int16, torch.uint16,
+                                   torch.int32, torch.float32, torch.bool])
+def test_clamp_mask_labels(dtype):
+    labels = torch.tensor([0, 1, 2, 3, 0, 7]).to(dtype)
+    got = TF.clamp_mask(labels)
+    want = np.clip(labels.numpy().astype(np.int64), 0, 1)
+    assert np.array_equal(got.numpy().astype(np.int64), want)
+
+
+def test_names_and_single_dispatch_branch():
+    # one dispatch rule for every shape: the branch follows the x radius
+    # with ife_tpu's thresholds (no VMEM ring limits a radius on the card)
+    from ife_tpu.kernels.fused import _XS_RX_MAX
+    from ife_tpu.ops.features import _SWEEP_RX_MAX
+
+    assert TF.FEATURE_NAMES == JF.FEATURE_NAMES
+    assert TF.NUM_FEATURES == JF.NUM_FEATURES == 8
+    assert (TF._SWEEP_RX_MAX, TF._XS_RX_MAX) == (_SWEEP_RX_MAX, _XS_RX_MAX)
+    want = {0.6: "sweep", 1.2: "sweep", 1.7: "sweep", 1.8: "xs_stream",
+            2.4: "xs_stream", 3.4: "xs_stream", 3.5: "nc_conv+post",
+            4.8: "nc_conv+post", 12.0: "nc_conv+post"}
+    for sigma, branch in want.items():  # rx = ceil(4.5 sigma / 0.78)
+        for shape in ((512,) * 3, (13, 12, 11)):
+            assert TF.features8_dispatch_branch(sigma, SPACING, shape) == branch
+    # a sweep whose y radius overflows a block's shared memory goes on
+    assert TF.features8_dispatch_branch(1.2, (0.78, 0.01, 1.0),
+                                        (64,) * 3) == "xs_stream"
