@@ -12,21 +12,34 @@ failing phase exits non-zero:
   3. kernels  each kernel against its plain PyTorch twin on the card, at
               (128,124,120) and (64,64,64), spacing (0.78,0.78,1.0) and
               (0.7,0.9,1.2), sigma 0.6/1.2/2.4/4.8 (the sweep and xs-stream
-              kernels where their rings fit shared memory);
-  4. main     the user entry points with the launch counters reset: the CLI
+              kernels where their rings fit shared memory); the histogram
+              kernel over the features8 channels, whole-volume and box
+              forms, E 1/31/4096, weighted and not, with NaN, +-inf and
+              duplicate edges, once on its global-memory path;
+  4. main     two paths of user entry points, the launch counters reset
+              before each and read after it. Features: the CLI
               (extract-features -s 0.6 2.4, hessian-features --fused) on a
               256x256x128 NIfTI, outputs checked against the plain f64 ops,
               then features8_auto_channels at sigma 1.2 and 4.8 and
-              hessian_eig_features at 512^3; every kernel must have launched;
+              hessian_eig_features at 512^3. Bags: the CLI generate-rois,
+              determine-bin-edges -s 0.6 2.4 --bins 32 over two volumes,
+              make-bag --device and make-bag with that spec; the spec
+              checked against the plain twins' pipeline, the device bag
+              against the host bag. Every kernel must have launched;
   5. full     512^3 f32: kernel and plain times (CUDA events, median of 5
               with spread) and kernel-vs-plain checks per kernel and sigma,
-              the features8 pass per sigma, and the device's copy rate;
+              the features8 pass per sigma, the device's copy rate, and
+              the histogram kernel at the bench.py config-4 shape (8
+              channels, 31 edges, mask weights: the sphere, and bench.py's
+              random 75% mask), at 4096 edges, and on 50 ROIs of 41^3 per
+              sigma beside the feature pass;
   6. profile  device time per CUDA kernel launch of one features8 pass per
-              sigma and one Hessian+eig pass (torch.profiler, 3 calls each).
+              sigma, one Hessian+eig pass and one config-4 histogram
+              (torch.profiler, 3 calls each).
 
 Kernel vs plain twin: the kernels are built without FMA contraction and
 keep their twins' association, so each must equal its twin to the bit (NaN
-where the twin is NaN); the relative error bench.py defines,
+where the twin is NaN; the histogram kernel's integer counts exactly); the relative error bench.py defines,
 max|kernel - plain| / max(max|plain|, 1) per channel with eigenvalue
 channels as value-sorted triples and the normalized convolution inside the
 mask, is printed beside it. The CLI outputs are held against the plain f64
@@ -65,7 +78,13 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     # XLA band einsums in its fused_features8 (no Pallas kernel there)
     "smooth_yz": ("ife_tpu_torch/csrc/normalized_conv.cu",
                   "ife_tpu/kernels/fused.py:1839"),
+    "histogram": ("ife_tpu_torch/csrc/histogram.cu",
+                  "ife_tpu/kernels/histogram.py:83"),
 }
+# the kernels each main path must launch
+FEATURE_PATH = ("hessian_eig", "normalized_conv", "features8_post",
+                "features8_sweep", "features8_xs_stream", "smooth_yz")
+BAG_PATH = ("features8_sweep", "features8_xs_stream", "smooth_yz", "histogram")
 # the sigma whose 512^3 times stand in the {"kernels": ...} line: one the
 # dispatcher sends to the kernel at 0.78 mm
 REPORT_SIGMA = {"normalized_conv": 4.8, "features8_post": 4.8,
@@ -260,6 +279,81 @@ def phase_kernels(errs):
             torch.cuda.synchronize()
             say("kernels", f"{shape} spacing {sp}, bit-equal to the twins: "
                 + "; ".join(line))
+        hist_kernel_checks(img, mask, shape, errs)
+
+
+def hist_edges(chans, E):
+    """(C, E) f64 edges: per channel, evenly spaced order statistics of a
+    strided sample, scaled by 1 + 2^-30 so that they are not f32 values
+    (they round down to f32), with a run of duplicates and +-inf at the
+    ends when E >= 8."""
+    rows = []
+    for c in chans:
+        v = c.reshape(-1)[:: max(1, c.numel() // 65536)]
+        v = v[torch.isfinite(v)].double().sort().values
+        idx = torch.linspace(0, v.numel() - 1, E, device=v.device).round().long()
+        rows.append(v[idx])
+    e = torch.stack(rows).cpu() * (1.0 + 2.0 ** -30)
+    if E >= 8:
+        e[:, 2:6] = e[:, 2:3]
+        e[:, 0], e[:, -1] = -float("inf"), float("inf")
+    return e
+
+
+def hist_kernel_checks(img, mask, shape, errs):
+    """The histogram kernel against its twin on the features8 channels of
+    img (sigma 1.2, the kernels' output, with NaN and +-inf planted):
+    whole-volume and box forms, E 1/31/4096, unweighted, mask (uint8) and
+    integer (int32) weights; at (64,64,64) also 64 channels x 4097 bins,
+    over a block's shared memory: the kernel's global-memory path."""
+    import numpy as np
+
+    from ife_tpu_torch import kernels as K
+    from ife_tpu_torch.kernels.histogram import _plan
+    from ife_tpu_torch.ops.features import features8_auto_channels
+    from ife_tpu_torch.roi import generate_random_rois
+
+    chans = list(features8_auto_channels(img, mask, 1.2, SPACINGS[0]))
+    chans[1] = chans[1].clone()
+    chans[1].view(-1)[:3] = torch.tensor([float("nan"), float("inf"),
+                                          -float("inf")], device=img.device)
+    g = torch.Generator(device=img.device).manual_seed(0)
+    weights = {"none": None, "mask": (mask != 0).to(torch.uint8),
+               "int": torch.randint(0, 4, shape, device=img.device,
+                                    dtype=torch.int32, generator=g)}
+    size = (17, 15, 13)
+    rois = generate_random_rois((mask != 0).cpu().numpy(), 12, size, seed=0)
+    starts = [r.index for r in rois] + [(0, 0, 0)]  # the corner: no mask
+    line = []
+    for E in (1, 31, 4096):
+        e = hist_edges(chans, E)
+        for wname, w in weights.items():
+            got = K.histogram_counts_multi(chans, e, w)
+            rel, _ = kernel_check(f"histogram {shape} E={E} w={wname}", got,
+                                  K.histogram_counts_multi_plain(chans, e, w))
+            errs["histogram"].append(rel)
+            got = K.histogram_boxes(chans, w, starts, size, e)
+            rel, _ = kernel_check(f"histogram boxes {shape} E={E} w={wname}",
+                                  got, K.histogram_boxes_plain(chans, w, starts,
+                                                               size, e))
+            errs["histogram"].append(rel)
+            if wname == "mask" and int(got[-1].sum()) != 0:
+                raise PhaseError("histogram: a box with no mask counted voxels")
+        line.append(f"E={E} (copies {_plan(8, E, img.numel(), 1, img.device)[0]})")
+    if shape == (64, 64, 64):
+        wide = chans * 8
+        e = hist_edges(wide, 4096)
+        if _plan(64, 4096, img.numel(), 1, img.device)[0] != 0:
+            raise PhaseError("64 x 4097 bins should take the global path")
+        rel, _ = kernel_check("histogram global path 64 x 4096",
+                              K.histogram_counts_multi(wide, e, weights["mask"]),
+                              K.histogram_counts_multi_plain(wide, e,
+                                                             weights["mask"]))
+        errs["histogram"].append(rel)
+        line.append("64 channels x 4096 edges (global path)")
+    torch.cuda.synchronize()
+    say("kernels", f"{shape} histogram equal to its twin, whole volume and "
+        f"{len(starts)} boxes, unweighted/mask/int32 weights: " + ", ".join(line))
 
 
 def branch_twin(img, m, sigma, sp):
@@ -319,9 +413,9 @@ def phase_main(tmp):
                 for s in (0.6, 1.2, 2.4, 4.8)}
     say("main", f"CLI {t_cli:.1f} s on {shape}; branches {branches}; "
         f"launches {launches}")
-    missing = [k for k in KERNELS if launches.get(k, 0) < 1]
+    missing = [k for k in FEATURE_PATH if launches.get(k, 0) < 1]
     if missing:
-        raise PhaseError(f"main path launched no {missing} kernel")
+        raise PhaseError(f"feature path launched no {missing} kernel")
 
     # The CLI's files against the plain ops in f64 (the reference
     # semantics, trig eigen path). Every channel but the eigenvalues must be
@@ -372,6 +466,96 @@ def phase_main(tmp):
         if e_rest > TOL or e_eig > max(TOL, 2 * e_twin):
             raise PhaseError(f"{name}: too far from the f64 plain ops")
     return launches, big_img, big_mask
+
+
+def phase_bags(tmp):
+    """The bag path of user entry points on the 256x256x128 NIfTI pair of
+    phase_main and a second volume (seed 3), counters reset first; returns
+    the counts."""
+    import numpy as np
+
+    from ife_tpu_torch.cli.main import main
+    from ife_tpu_torch.core.volume import Volume
+    from ife_tpu_torch.io import read_hist_spec, read_rois, read_volume, write_volume
+    from ife_tpu_torch.kernels import LAUNCHES, reset_launches
+    from ife_tpu_torch.roi.bag import make_bag, make_bag_device
+    from ife_tpu_torch.stats.equalize import determine_edges_for_equalized_histogram
+
+    shape = (256, 256, 128)
+    path = lambda name: os.path.join(tmp, name)  # noqa: E731
+    img3, _ = _inputs(shape, 3, "cpu")
+    write_volume(path("img3.nii.gz"), Volume(img3, spacing=FULL_SPACING))
+    with open(path("pairs.txt"), "w") as f:
+        f.write(f"{path('img.nii.gz')},{path('mask.nii.gz')}\n"
+                f"{path('img3.nii.gz')},{path('mask.nii.gz')}\n")
+    bag_args = ["-i", path("img.nii.gz"), "-m", path("mask.nii.gz"), "-b",
+                path("spec.txt"), "-s", "0.6", "2.4", "-n", "50",
+                "--roi-size", "41,41,41", "--seed", "0"]
+    runs = [["generate-rois", "-m", path("mask.nii.gz"), "-o", path("gen.roi"),
+             "-n", "50", "--size", "41,41,41", "--seed", "0"],
+            ["determine-bin-edges", "-l", path("pairs.txt"), "-o",
+             path("spec.txt"), "-s", "0.6", "2.4", "--bins", "32"],
+            ["make-bag", "--device", *bag_args, "-o", path("dev")],
+            ["make-bag", *bag_args, "-o", path("host")]]
+    torch.cuda.synchronize()
+    reset_launches()
+    secs = []
+    for argv in runs:
+        t0 = time.perf_counter()
+        if main(argv) != 0:
+            raise PhaseError(f"CLI {argv[0]} exited non-zero")
+        torch.cuda.synchronize()
+        secs.append(f"{' '.join(argv[:2])} {time.perf_counter() - t0:.1f} s")
+    launches = dict(LAUNCHES)
+    say("bags", "; ".join(secs) + f"; launches {launches}")
+    missing = [k for k in BAG_PATH if launches.get(k, 0) < 1]
+    if missing:
+        raise PhaseError(f"bag path launched no {missing} kernel")
+
+    # the spec against the same pipeline through the plain twins
+    spec = read_hist_spec(path("spec.txt"))
+    if len(spec) != 16 or any(r.size != 31 or not np.isfinite(r).all()
+                              or (np.diff(r) < 0).any() for r in spec):
+        raise PhaseError("spec: not 16 finite non-decreasing rows of 31 edges")
+    samples = [[] for _ in range(16)]
+    for name in ("img.nii.gz", "img3.nii.gz"):
+        vol = read_volume(path(name))
+        fg = read_volume(path("mask.nii.gz")).data.cuda() == 1
+        x = vol.data.cuda().float().contiguous()
+        for i, sigma in enumerate((0.6, 2.4)):
+            twin = branch_twin(x, fg.float(), sigma, vol.spacing)
+            for k in range(8):
+                samples[i * 8 + k].append(twin[k][fg].cpu().numpy())
+    want = [determine_edges_for_equalized_histogram(
+        np.sort(np.concatenate(v)), 32) for v in samples]
+    if not all(np.array_equal(a, b) for a, b in zip(spec, want)):
+        raise PhaseError("spec differs from the plain twins' pipeline")
+
+    # the bags: the CLI's ROIs are generate-rois'; the device bag equals
+    # the host bag within the f32 division; every histogram sums to 1
+    with open(path("gen.roi")) as a, open(path("dev.ROIInfo")) as b:
+        if a.read() != b.read():
+            raise PhaseError("make-bag drew other ROIs than generate-rois")
+    vol, mask = read_volume(path("img.nii.gz")), read_volume(path("mask.nii.gz"))
+    rois = read_rois(path("dev.ROIInfo"))
+    args = (vol.numpy(), mask.numpy(), [0.6, 2.4], spec, rois)
+    dev_bag = make_bag_device(*args, spacing=vol.spacing)
+    host_bag = make_bag(*args, spacing=vol.spacing)
+    d = float(np.abs(dev_bag - host_bag).max())
+    sums = dev_bag.reshape(len(rois), 16, 32).sum(-1)
+    masked = np.asarray([(mask.numpy()[r.slices()] != 0).any() for r in rois])
+    s_err = float(np.abs(sums[masked] - 1.0).max())
+    csv = [np.loadtxt(path(f"{n}.bag"), delimiter=",") for n in ("dev", "host")]
+    c_err = max(float((np.abs(c - b) / np.maximum(np.abs(b), 1e-30)).max())
+                for c, b in zip(csv, (dev_bag, host_bag)))
+    say("bags", f"spec equal to the plain twins' pipeline; bag {dev_bag.shape}, "
+        f"device vs host max |d| {d:.3g} (<= 2^-23), histogram sums within "
+        f"{s_err:.3g} of 1 ({int(masked.sum())} ROIs with mask), CSV files "
+        f"within {c_err:.3g} (relative) of the bags")
+    if d > 2.0 ** -23 or s_err > 1e-5 or c_err > 5.01e-6 or not masked.any():
+        raise PhaseError("bags: device and host bags disagree, a histogram "
+                         "does not sum to 1, or a CSV file is off")
+    return launches
 
 
 def timed(label, fn):
@@ -429,6 +613,104 @@ def phase_full(img, mask, errs, results):
     print(card_line(), flush=True)
 
 
+def config4_inputs(img, mask):
+    """bench.py config 4 (:537-574) on the card: the 8 channels of one
+    features8 pass at sigma 1.2 in its order (f8[1:] + f8[0]), 31 shared
+    edges linspace(-1200, 600), the mask as uint8 weights."""
+    from ife_tpu_torch.ops.features import features8_auto_channels
+
+    f8 = features8_auto_channels(img, mask, 1.2, FULL_SPACING)
+    edges = torch.linspace(-1200.0, 600.0, 31, dtype=torch.float64)
+    return list(f8[1:]) + [f8[0]], edges, (mask != 0).to(torch.uint8)
+
+
+def phase_full_hist(img, mask, errs, results):
+    """The histogram kernel at 512^3 against its twin: the config-4 shape,
+    one 4096-edge channel, and 50 ROIs of 41^3 per sigma beside the
+    feature pass that feeds them."""
+    import numpy as np
+
+    from ife_tpu_torch import kernels as K
+    from ife_tpu_torch.ops.features import features8_auto_channels
+    from ife_tpu_torch.roi import generate_random_rois
+    from ife_tpu_torch.roi.bag import roi_feature_histograms_device
+
+    chans, edges, w = config4_inputs(img, mask)
+    inside = int(w.sum())
+    km = timed("histogram kernel, config 4 (8 x 512^3, 31 edges, mask)",
+               lambda: K.histogram_counts_multi(chans, edges, w))
+    pm = timed("histogram plain, config 4",
+               lambda: K.histogram_counts_multi_plain(chans, edges, w))
+    rel, ab = kernel_check("histogram config 4",
+                           K.histogram_counts_multi(chans, edges, w),
+                           K.histogram_counts_multi_plain(chans, edges, w))
+    errs["histogram"].append(rel)
+    results["histogram"] = dict(ms=km, plain_ms=pm, max_abs_err=ab)
+    # bytes the kernel must move: the uint8 mask, and the 8 channels of
+    # every 32-voxel warp that holds a masked voxel
+    warps = int(w.view(-1, 32).any(1).sum())
+    gb = (w.numel() + warps * 32 * 4 * 8) / 1e9
+    say("full", f"histogram config 4 equal to plain; {inside} masked voxels, "
+        f"~{gb:.2f} GB moved -> {gb / (km * 1e-3):.0f} GB/s; "
+        f"{8 * inside / (km * 1e-3) / 1e9:.2f} G binnings/s")
+
+    # bench.py's own config-4 mask: uniform > 0.25, 75% of the voxels
+    g = torch.Generator(device=img.device).manual_seed(2)
+    wr = (torch.rand(img.shape, device=img.device, generator=g) > 0.25
+          ).to(torch.uint8)
+    timed("histogram kernel, config 4 with a random 75% mask",
+          lambda: K.histogram_counts_multi(chans, edges, wr))
+    timed("histogram plain, config 4 with a random 75% mask",
+          lambda: K.histogram_counts_multi_plain(chans, edges, wr))
+    rel, _ = kernel_check("histogram config 4, random mask",
+                          K.histogram_counts_multi(chans, edges, wr),
+                          K.histogram_counts_multi_plain(chans, edges, wr))
+    errs["histogram"].append(rel)
+    del wr
+
+    c0 = chans[-1]  # GaussianBlur
+    lo, hi = float(c0[w != 0].min()), float(c0[w != 0].max())
+    fine = torch.linspace(lo, hi, 4096, dtype=torch.float64)
+    timed("histogram kernel, 1 x 512^3, 4096 edges, mask",
+          lambda: K.histogram_counts_kernel(c0, fine, w))
+    timed("histogram plain, 1 x 512^3, 4096 edges",
+          lambda: K.histogram_counts_multi_plain([c0], fine, w))
+    rel, _ = kernel_check("histogram 4096 edges",
+                          K.histogram_counts_kernel(c0, fine, w),
+                          K.histogram_counts_multi_plain([c0], fine, w)[0])
+    errs["histogram"].append(rel)
+    del chans, c0
+    torch.cuda.empty_cache()
+
+    size = (41, 41, 41)
+    rois = generate_random_rois(w.cpu().numpy(), 50, size, seed=0)
+    starts = np.asarray([r.index for r in rois])
+    for sigma in SIGMAS:
+        feats = features8_auto_channels(img, mask, sigma, FULL_SPACING)
+        e = hist_edges(feats, 31)
+        f_ms = timed(f"s={sigma} features8 pass",
+                     lambda: features8_auto_channels(img, mask, sigma,
+                                                     FULL_SPACING))
+        b_ms = timed(f"s={sigma} binning 50 ROIs of 41^3 "
+                     "(roi_feature_histograms_device)",
+                     lambda: roi_feature_histograms_device(feats, mask, starts,
+                                                           e, size))
+        k_ms = timed(f"s={sigma} histogram kernel, 50 boxes",
+                     lambda: K.histogram_boxes(feats, w, starts, size, e))
+        p_ms = timed(f"s={sigma} histogram plain, 50 boxes",
+                     lambda: K.histogram_boxes_plain(feats, w, starts, size, e))
+        rel, _ = kernel_check(f"histogram boxes 512^3 s={sigma}",
+                              K.histogram_boxes(feats, w, starts, size, e),
+                              K.histogram_boxes_plain(feats, w, starts, size, e))
+        errs["histogram"].append(rel)
+        say("full", f"s={sigma} make_bag_device stages: features8 {f_ms:.3f} ms, "
+            f"binning {b_ms:.3f} ms (kernel {k_ms:.3f} vs plain {p_ms:.3f} ms, "
+            "equal)")
+        del feats
+        torch.cuda.empty_cache()
+    print(card_line(), flush=True)
+
+
 def phase_profile(img, mask):
     """Device time per CUDA kernel of each pass, from torch.profiler; a
     profiler that records no device time prints "not measured"."""
@@ -446,6 +728,11 @@ def phase_profile(img, mask):
     passes += [(f"features8 s={s}",
                 lambda s=s: features8_auto_channels(img, mask, s, FULL_SPACING))
                for s in SIGMAS]
+    from ife_tpu_torch.kernels import histogram_counts_multi
+
+    chans, edges, w = config4_inputs(img, mask)
+    passes.append(("histogram config 4",
+                   lambda: histogram_counts_multi(chans, edges, w)))
     for label, fn in passes:
         fn()
         torch.cuda.synchronize()
@@ -488,17 +775,23 @@ def main() -> int:
         phase = "main"
         with tempfile.TemporaryDirectory(prefix="ife_chip_smoke_") as tmp:
             launches, img, mask = phase_main(tmp)
+            phase = "bags"
+            bag_launches = phase_bags(tmp)
+        launches = {k: launches[k] + bag_launches[k] for k in launches}
         phase = "full"
         results = {}
         phase_full(img, mask, errs, results)
+        phase_full_hist(img, mask, errs, results)
         phase = "profile"
         phase_profile(img, mask)
     except PhaseError as e:
         print(f"chip_smoke: phase {phase} failed: {e}", file=sys.stderr)
         return 1
-    # every number below was measured in this run: launches in phase 4;
+    # every number below was measured in this run: launches in phase 4
+    # (the feature path's and the bag path's runs added);
     # ms, plain_ms and max_abs_err at 512^3 (at REPORT_SIGMA for the
-    # smoothing kernels); max_rel_err the worst of phases 3 and 5
+    # smoothing kernels, the config-4 shape for the histogram); max_rel_err
+    # the worst of phases 3 and 5
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep,
              launches=launches[name], **results[name],

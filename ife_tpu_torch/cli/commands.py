@@ -1,5 +1,6 @@
 """Subcommand implementations for the port's CLI (counterpart of
-ife_tpu/cli/commands.py, first slice: the feature subcommands).
+ife_tpu/cli/commands.py): the feature subcommands, determine-bin-edges,
+make-bag and generate-rois.
 
 REGISTRY maps subcommand name -> (configure(parser), run(args), help). The
 compute runs on the first CUDA device when there is one, else on the CPU;
@@ -9,7 +10,15 @@ from __future__ import annotations
 
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
+
+
+def _triple(s: str, cast=int):
+    parts = [p for p in s.replace(",", " ").split() if p]
+    if len(parts) != 3:
+        raise ValueError(f"expected 3 comma-separated values, got {s!r}")
+    return tuple(cast(p) for p in parts)
 
 
 def _device() -> torch.device:
@@ -157,6 +166,159 @@ def run_gradient_features(args):
 
 
 # ---------------------------------------------------------------------------
+# bag tools
+# ---------------------------------------------------------------------------
+
+def _get_rois(args, mask_np, default_size=(41, 41, 41)):
+    """ROI source resolution shared by the bag tools: explicit ROI file, or
+    random generation (MakeBag.cxx:272-317)."""
+    from ife_tpu_torch.io import read_rois
+    from ife_tpu_torch.roi import generate_random_rois
+
+    if getattr(args, "roi_file", None):
+        return read_rois(args.roi_file, header=getattr(args, "roi_header", False))
+    size = getattr(args, "roi_size", None) or default_size
+    return generate_random_rois(
+        mask_np, n=args.num_rois, size=size, seed=getattr(args, "seed", None)
+    )
+
+
+def conf_make_bag(p):
+    p.add_argument("-i", "--image", required=True)
+    p.add_argument("-m", "--mask", required=True)
+    p.add_argument("-b", "--bins", dest="hist_spec", required=True,
+                   help="histogram spec file (bin edges)")
+    p.add_argument("-o", "--out", required=True, help="output prefix")
+    p.add_argument("-s", "--scales", type=float, nargs="+", required=True)
+    p.add_argument("-r", "--roi-file", default=None)
+    p.add_argument("--roi-header", action="store_true")
+    p.add_argument("-n", "--num-rois", type=int, default=50)
+    p.add_argument("--roi-size", type=_triple, default=(41, 41, 41),
+                   metavar="X,Y,Z")
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--device", action="store_true",
+                   help="histogram the ROIs on the device (the histogram "
+                   "kernel on CUDA; mixed ROI sizes run per size class)")
+    p.add_argument("--sharded", action="store_true",
+                   help="block-shard the feature pass over all devices "
+                   "(not yet ported: raises)")
+
+
+def run_make_bag(args):
+    """Reference tools/MakeBag.cxx: per-ROI concatenated feature histograms
+    -> <prefix>.bag CSV + <prefix>.ROIInfo."""
+    from ife_tpu_torch.io import read_hist_spec, write_matrix_csv, write_rois
+    from ife_tpu_torch.roi.bag import make_bag, make_bag_device
+
+    if args.sharded:
+        raise NotImplementedError(
+            "make-bag --sharded is not yet ported to ife_tpu_torch")
+    vol = _load(args.image)
+    mask = _load(args.mask)
+    edges = read_hist_spec(args.hist_spec)
+    mask_np = mask.numpy()
+    rois = _get_rois(args, mask_np)
+    bag_fn = make_bag_device if args.device else make_bag
+    bag = bag_fn(vol.numpy(), mask_np, args.scales, edges, rois,
+                 spacing=vol.spacing)
+    write_matrix_csv(f"{args.out}.bag", bag)
+    write_rois(f"{args.out}.ROIInfo", rois)
+    _progress(f"Wrote {bag.shape[0]} ROIs x {bag.shape[1]} columns")
+
+
+def conf_determine_bin_edges(p):
+    p.add_argument("-l", "--pair-list", required=True,
+                   help="text file: image,mask per line")
+    p.add_argument("-o", "--out", required=True)
+    p.add_argument("-s", "--scales", type=float, nargs="+", required=True)
+    p.add_argument("--bins", type=int, required=True)
+    p.add_argument("--samples", type=int, default=0,
+                   help="random samples per image (0 = all masked voxels)")
+    p.add_argument("--foreground", type=int, nargs="+", default=[1],
+                   help="mask labels counted as foreground")
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--sharded", action="store_true",
+                   help="scalable sharded path (not yet ported: raises)")
+
+
+def _foreground_mask(arr: np.ndarray, labels) -> np.ndarray:
+    """Membership of arr values in the (small) foreground label list: a
+    per-label equality OR (np.isin's sort-based path is slow on a 512^3
+    volume)."""
+    fg = np.zeros(np.shape(arr), bool)
+    for v in labels:
+        fg |= (arr == v)
+    return fg
+
+
+def run_determine_bin_edges(args):
+    """Reference tools/DetermineHistogramBinEdges_MultiScaleEigenvalue
+    Features.cxx: per (scale, feature) equal-frequency edges over a sample
+    of masked feature voxels from all listed images. The foreground voxels
+    are gathered on the device; sampling (numpy default_rng, as ife_tpu),
+    the sort and the edge search run on the host."""
+    from ife_tpu_torch.io import read_pair_list, write_hist_spec
+    from ife_tpu_torch.ops.features import (
+        FEATURE_NAMES, NUM_FEATURES, features8_auto_channels,
+    )
+    from ife_tpu_torch.stats.equalize import determine_edges_for_equalized_histogram
+
+    if args.sharded:
+        raise NotImplementedError(
+            "determine-bin-edges --sharded is not yet ported to ife_tpu_torch")
+    dev = _device()
+    pairs = read_pair_list(args.pair_list)
+    rng = np.random.default_rng(args.seed)
+    samples = [[] for _ in range(NUM_FEATURES * len(args.scales))]
+    for img_path, mask_path in pairs:
+        _progress(f"Processing {img_path} / {mask_path}")
+        vol = _load(img_path)
+        mask = _load(mask_path)
+        fg = torch.from_numpy(_foreground_mask(mask.numpy(), args.foreground)
+                              ).to(dev)
+        img = vol.data.to(device=dev, dtype=torch.float32).contiguous()
+        msk = fg.to(torch.uint8)
+        for i, s in enumerate(args.scales):
+            feats = features8_auto_channels(img, msk, float(s), vol.spacing)
+            sel = torch.stack([c[fg] for c in feats], dim=1).cpu().numpy()
+            if args.samples > 0 and sel.shape[0] > args.samples:
+                sel = sel[rng.choice(sel.shape[0], args.samples, replace=False)]
+            for k in range(NUM_FEATURES):
+                samples[i * NUM_FEATURES + k].append(sel[:, k])
+    edge_rows = []
+    for vals in samples:
+        v = np.sort(np.concatenate(vals))
+        edge_rows.append(determine_edges_for_equalized_histogram(v, args.bins))
+    write_hist_spec(args.out, edge_rows, scales=args.scales,
+                    feature_names=FEATURE_NAMES)
+
+
+# ---------------------------------------------------------------------------
+# ROI tools
+# ---------------------------------------------------------------------------
+
+def conf_generate_rois(p):
+    p.add_argument("-m", "--mask", required=True)
+    p.add_argument("-o", "--out", required=True)
+    p.add_argument("-n", "--num-rois", type=int, default=50)
+    p.add_argument("--size", type=_triple, default=(53, 53, 41), metavar="X,Y,Z")
+    p.add_argument("--mask-value", type=int, default=1)
+    p.add_argument("--seed", type=int, default=None)
+
+
+def run_generate_rois(args):
+    """Reference tools/GenerateROIs.cxx:127-163."""
+    from ife_tpu_torch.io import write_rois
+    from ife_tpu_torch.roi import generate_random_rois
+
+    mask = _load(args.mask)
+    binary = (mask.numpy() == args.mask_value).astype(np.uint8)
+    rois = generate_random_rois(binary, n=args.num_rois, size=args.size,
+                                seed=args.seed)
+    write_rois(args.out, rois)
+
+
+# ---------------------------------------------------------------------------
 # registry (the other ife_tpu subcommands are not ported yet)
 # ---------------------------------------------------------------------------
 
@@ -171,4 +333,11 @@ REGISTRY: Dict[str, Tuple] = {
     "hessian-features": (conf_hessian_features, run_hessian_features,
                          "raw Hessian eigen-feature volumes "
                          "(FiniteDifference_HessianFeatures, fixed)"),
+    "make-bag": (conf_make_bag, run_make_bag,
+                 "per-ROI feature histogram bag CSV (MakeBag)"),
+    "determine-bin-edges": (conf_determine_bin_edges, run_determine_bin_edges,
+                            "equalized histogram bin edges over an image list "
+                            "(DetermineHistogramBinEdges_MultiScaleEigenvalueFeatures)"),
+    "generate-rois": (conf_generate_rois, run_generate_rois,
+                      "random ROI boxes from a mask (GenerateROIs)"),
 }

@@ -1,8 +1,9 @@
 """The port's CLI entry point (counterpart of ife_tpu/cli/main.py).
 
-One subcommand per reference tool; this slice registers the feature tools
+One subcommand per reference tool; registered so far: the feature tools
 (extract-features, hessian-features, masked-normalized-convolution,
-gradient-features). Run as ``python -m ife_tpu_torch <subcommand>``.
+gradient-features), determine-bin-edges, make-bag and generate-rois. Run
+as ``python -m ife_tpu_torch <subcommand>``.
 """
 from __future__ import annotations
 

@@ -11,6 +11,12 @@ kernel launches per kernel. Counterparts of ife_tpu/kernels/fused.py:
   fused_features8_sweep,
   fused_features8_xs_stream                   -> csrc/features8_sweep.cu
 
+and of ife_tpu/kernels/histogram.py:
+
+  histogram_counts_multi, histogram_counts_pallas
+  (-> histogram_counts_kernel), plus the per-ROI
+  binning (-> histogram_boxes)                -> csrc/histogram.cu
+
 plus fused_smooth_yz (csrc/normalized_conv.cu), the y/z passes ahead of
 the xs-stream kernel. ife_tpu's fused_features8 dispatcher is torch code
 here: ops.features.fused_features8.
@@ -27,6 +33,14 @@ from ife_tpu_torch.kernels.features8_sweep import (  # noqa: F401
     fused_features8_xs_stream,
     sweep_fits,
     xs_stream_fits,
+)
+from ife_tpu_torch.kernels.histogram import (  # noqa: F401
+    histogram_boxes,
+    histogram_boxes_plain,
+    histogram_counts_kernel,
+    histogram_counts_multi,
+    histogram_counts_multi_plain,
+    histogram_plain,
 )
 from ife_tpu_torch.kernels.hessian_eig import (  # noqa: F401
     fused_hessian_eig,

@@ -1,9 +1,10 @@
 """Build, load and launch the hand-written CUDA kernels of
 ``ife_tpu_torch/csrc``.
 
-At first use every ``csrc/*.cu`` is compiled by ``nvcc`` into one shared
-library with a plain C interface (no PyTorch headers, so a build takes
-seconds), cached under ``build/ife_tpu_torch/<source hash>/`` at the root of
+At first use every ``csrc/*.cu`` is compiled by its own ``nvcc`` process,
+all of them at once, and the objects are linked into one shared library
+with a plain C interface (no PyTorch headers, so a build takes seconds),
+cached under ``build/ife_tpu_torch/<source hash>/`` at the root of
 the checkout, and loaded with ctypes. The hash covers every source and
 header and the compiler flags, so an edited kernel is rebuilt and a stale
 library is never loaded.
@@ -36,12 +37,13 @@ BUILD_ROOT = Path(__file__).resolve().parent.parent.parent / "build" / "ife_tpu_
 # memory-bound, so the extra instructions are not on their critical path.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 # kernel name -> number of successful launches of its C entry point
 LAUNCHES = {"hessian_eig": 0, "normalized_conv": 0, "features8_post": 0,
-            "features8_sweep": 0, "features8_xs_stream": 0, "smooth_yz": 0}
+            "features8_sweep": 0, "features8_xs_stream": 0, "smooth_yz": 0,
+            "histogram": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
@@ -59,6 +61,7 @@ _SIGNATURES = {
                             _I] + [_F] * 6 + [_P],
     "ife_features8_xs_stream": [_P, _P, _P, _P, _I, _I, _I, _FP, _I]
                                + [_F] * 6 + [_P],
+    "ife_histogram": [_P, _I, _P, _I, _P, _I, _P] + [_I] * 8 + [_P, _P],
 }
 
 _lock = threading.Lock()
@@ -95,28 +98,41 @@ def library_path() -> Path:
     return BUILD_ROOT / source_hash() / "libife_kernels.so"
 
 
+def _run_all(cmds):
+    """Run the commands at once; raise with the first failure's stderr.
+    Returns their stdout + stderr, in order."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (_, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{err}")
+    return [o + e for o, e in outs]
+
+
 def build() -> Path:
     """Compile csrc/*.cu into the cached library unless it already exists;
-    returns its path. Raises with nvcc's stderr when the build fails. The
-    compiler's report (-Xptxas -v: registers, spills) is kept beside the
-    library as build.log."""
+    returns its path. Each source compiles in its own nvcc process, all
+    started together, then one nvcc links the objects. Raises with nvcc's
+    stderr when the build fails. The compiler's report (-Xptxas -v:
+    registers, spills) is kept beside the library as build.log."""
     out = library_path()
     if out.is_file():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     cus, _ = _sources()
-    # compile to a private name, then rename: concurrent builders never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, cus)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}")
-    (out.parent / "build.log").write_text(res.stdout + res.stderr)
-    os.replace(tmp, out)
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as work:
+        objs = [str(Path(work) / (cu.stem + ".o")) for cu in cus]
+        logs = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(cu)]
+                         for cu, o in zip(cus, objs)])
+        # link to a private name, then rename: a concurrent process never
+        # loads a half-written library
+        tmp = str(Path(work) / out.name)
+        logs += _run_all([[nvcc, "-shared", "-o", tmp, *objs]])
+        (out.parent / "build.log").write_text("".join(logs))
+        os.replace(tmp, out)
     return out
 
 

@@ -1,0 +1,275 @@
+"""Bag-of-features assembly — MakeBag / MakeBagOnlyIntensity / SampleROIs /
+ExtractLabels semantics (counterpart of ife_tpu/roi/bag.py).
+
+Reference (tools/MakeBag.cxx:405-486): per scale, run the 8-channel feature
+pass; per ROI, bin the masked voxels of each channel into histogram
+histIdx = scale*8 + feature; write frequencies into bag row j at column
+offset histIdx * histSize.
+
+Two forms, as in ife_tpu:
+  * make_bag bins on the host (numpy searchsorted/bincount over each ROI's
+    masked voxels) from feature volumes computed on the device;
+  * make_bag_device bins on the device: one histogram_boxes call per scale
+    and ROI size class, which on the card is one launch of the histogram
+    kernel for every ROI of the class; only the (n_rois, 8, bins) frequency
+    block returns to the host.
+"""
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import numpy as np
+import torch
+
+from ife_tpu_torch.kernels.histogram import _edges_f32_round_down, histogram_boxes
+from ife_tpu_torch.ops.features import NUM_FEATURES, features8_auto_channels
+from ife_tpu_torch.roi.generate import ROI
+
+
+def _default_device(device) -> torch.device:
+    if device is not None:
+        return torch.device(device)
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
+def _check_hist_spec(hist_edges: Sequence[np.ndarray], n_expected: int) -> int:
+    if len(hist_edges) != n_expected:
+        raise ValueError(
+            f"Number of histograms must match number of features times number "
+            f"of scales: got {len(hist_edges)}, expected {n_expected}"
+        )
+    sizes = {len(e) + 1 for e in hist_edges}
+    if len(sizes) != 1:
+        raise ValueError("Histograms must have the same bin count")
+    return sizes.pop()
+
+
+def _roi_frequencies(values: np.ndarray, edges: np.ndarray) -> np.ndarray:
+    """Frequencies over len(edges)+1 bins, reference bin convention.
+    Empty input -> nan row (reference divides counts by a zero total)."""
+    idx = np.searchsorted(edges, values, side="left")
+    counts = np.bincount(idx, minlength=edges.size + 1).astype(np.float64)
+    total = counts.sum()
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return counts / total
+
+
+def _device_inputs(image, mask, dtype, device):
+    """The image as `dtype` and the mask clamped to {0, 1}, on `device`."""
+    mask_np = np.clip(np.asarray(mask), 0, 1)
+    if mask_np.dtype.kind in "bu":
+        # 0/1 after the clip: uint8 keeps the values and has every torch op
+        mask_np = mask_np.astype(np.uint8)
+    img = torch.from_numpy(np.ascontiguousarray(image)).to(device=device,
+                                                          dtype=dtype)
+    return img.contiguous(), torch.from_numpy(mask_np).to(device), mask_np
+
+
+def _edges_block(hist_edges, i) -> np.ndarray:
+    """(8, E) f64 edges of scale i (scale-major: row i*8 + k)."""
+    return np.stack([np.asarray(hist_edges[i * NUM_FEATURES + k], np.float64)
+                     for k in range(NUM_FEATURES)])
+
+
+def make_bag(
+    image: np.ndarray,
+    mask: np.ndarray,
+    sigmas: Sequence[float],
+    hist_edges: Sequence[np.ndarray],
+    rois: Sequence[ROI],
+    spacing: Sequence[float] = (1.0, 1.0, 1.0),
+    dtype=torch.float32,
+    device=None,
+) -> np.ndarray:
+    """Bag matrix (n_rois, histSize * 8 * n_scales), binned on the host.
+
+    hist_edges is ordered scale-major: index i*8+k is scale i, feature k
+    (reference MakeBag.cxx:453). The feature pass runs on `device` (the
+    first CUDA device when there is one, else the CPU).
+    """
+    hist_size = _check_hist_spec(hist_edges, NUM_FEATURES * len(sigmas))
+    dev = _default_device(device)
+    img, msk, mask_np = _device_inputs(image, mask, dtype, dev)
+    bag = np.zeros((len(rois), hist_size * len(hist_edges)), dtype=np.float64)
+    roi_masks = [mask_np[r.slices()] != 0 for r in rois]
+
+    for i, sigma in enumerate(sigmas):
+        feats = [c.cpu().numpy() for c in features8_auto_channels(
+            img, msk, float(sigma), tuple(spacing))]
+        edges_block = _edges_block(hist_edges, i)
+        col0 = i * NUM_FEATURES * hist_size
+        for j, r in enumerate(rois):
+            inside = roi_masks[j]
+            for k in range(NUM_FEATURES):
+                freqs = _roi_frequencies(feats[k][r.slices()][inside],
+                                         edges_block[k])
+                col = col0 + k * hist_size
+                bag[j, col : col + hist_size] = freqs
+    return bag
+
+
+def roi_feature_histograms_device(
+    feats,
+    mask: torch.Tensor,
+    starts,
+    edges: torch.Tensor,
+    size: tuple,
+) -> torch.Tensor:
+    """Device-side MakeBag inner loop: per-ROI masked feature histograms of
+    every ROI of one box `size`, in one histogram_boxes call (one kernel
+    launch on the card).
+
+    Args:
+      feats: TUPLE of C (X, Y, Z) channel tensors, or one (X, Y, Z, C)
+        volume.
+      mask: (X, Y, Z) labels; nonzero = counted.
+      starts: (N, 3) int ROI start corners.
+      edges: (C, E) bin edges per channel.
+      size: ROI box (sx, sy, sz).
+
+    Returns:
+      (N, C, E+1) f32 frequencies: counts / masked voxels, divided in f32
+      as ife_tpu does (nan if a box has no masked voxel, like the
+      reference's divide-by-zero).
+    """
+    chans = (tuple(feats[..., k] for k in range(feats.shape[-1]))
+             if getattr(feats, "ndim", None) == 4 else tuple(feats))
+    chans = tuple(c.contiguous() for c in chans)
+    counts = histogram_boxes(chans, mask != 0, starts, size, edges)
+    # every masked voxel lands in one bin of channel 0: its row sum is the
+    # box's masked-voxel count, exact in f32 below 2^24 as ife_tpu's f32
+    # sum of the 0/1 mask
+    total = counts[:, :1].sum(dim=-1, keepdim=True, dtype=torch.int64)
+    return counts.to(torch.float32) / total.to(torch.float32)
+
+
+def _size_classes(rois: Sequence[ROI]):
+    """ROI indices bucketed by box size: [(size, index_list), ...] in
+    first-appearance order. The device path bins each class in one
+    histogram_boxes call, so reference `.ROIInfo` files with heterogeneous
+    boxes (tools/MakeBag.cxx:304-317 accepts per-ROI sizes) stay on the
+    device."""
+    classes: dict = {}
+    for j, r in enumerate(rois):
+        classes.setdefault(r.size, []).append(j)
+    return list(classes.items())
+
+
+def _round_edges_f32(edges_block: np.ndarray, fdt) -> torch.Tensor:
+    """Edges for binning `fdt` values, on the host: the bin convention
+    compares f32 values against f64 edges (exact after promotion); comparing
+    in f32 is equivalent iff edges are rounded DOWN (v <= e64 <=> v <=
+    f32_floor(e64)). Other value dtypes keep the f64 edges."""
+    e = torch.from_numpy(np.asarray(edges_block, np.float64))
+    if fdt == torch.float32:
+        e = _edges_f32_round_down(e)
+    return e.to(fdt)
+
+
+def make_bag_device(
+    image: np.ndarray,
+    mask: np.ndarray,
+    sigmas: Sequence[float],
+    hist_edges: Sequence[np.ndarray],
+    rois: Sequence[ROI],
+    spacing: Sequence[float] = (1.0, 1.0, 1.0),
+    dtype=torch.float32,
+    device=None,
+) -> np.ndarray:
+    """make_bag with the ROI histogramming on the device. Same
+    (n_rois, histSize * 8 * n_scales) layout and bin semantics as
+    make_bag; the frequencies are f32 (counts / masked voxels), as
+    ife_tpu's make_bag_device gives them. Mixed ROI sizes run one
+    histogram_boxes call per size class."""
+    classes = _size_classes(rois)
+    hist_size = _check_hist_spec(hist_edges, NUM_FEATURES * len(sigmas))
+    dev = _default_device(device)
+    img, msk, _ = _device_inputs(image, mask, dtype, dev)
+    starts_np = np.asarray([r.index for r in rois], np.int64).reshape(-1, 3)
+    bag = np.zeros((len(rois), hist_size * NUM_FEATURES * len(sigmas)),
+                   dtype=np.float64)
+    for i, sigma in enumerate(sigmas):
+        feats = features8_auto_channels(img, msk, float(sigma), tuple(spacing))
+        edges = _round_edges_f32(_edges_block(hist_edges, i), feats[0].dtype)
+        col0 = i * NUM_FEATURES * hist_size
+        for size, idxs in classes:
+            freqs = roi_feature_histograms_device(
+                feats, msk, starts_np[idxs], edges, size)
+            bag[idxs, col0 : col0 + NUM_FEATURES * hist_size] = (
+                freqs.cpu().numpy().astype(np.float64).reshape(len(idxs), -1))
+    return bag
+
+
+def make_bag_sharded(*args, **kwargs) -> np.ndarray:
+    """make_bag over a block-sharded mesh: not yet ported (the sharded
+    feature pass waits for ife_tpu_torch's parallel/ package)."""
+    raise NotImplementedError(
+        "make_bag_sharded is not yet ported to ife_tpu_torch")
+
+
+def make_bag_intensity(
+    image: np.ndarray,
+    mask: np.ndarray,
+    hist_edges: np.ndarray,
+    rois: Sequence[ROI],
+) -> np.ndarray:
+    """MakeBagOnlyIntensity semantics (tools/MakeBagOnlyIntensity.cxx:326-382):
+    one histogram over RAW intensity, no features, no scales."""
+    edges = np.asarray(hist_edges)
+    mask_np = np.clip(np.asarray(mask), 0, 1)
+    img = np.asarray(image)
+    bag = np.zeros((len(rois), edges.size + 1), dtype=np.float64)
+    for j, r in enumerate(rois):
+        crop = img[r.slices()]
+        inside = mask_np[r.slices()] != 0
+        bag[j] = _roi_frequencies(crop[inside], edges)
+    return bag
+
+
+def sample_rois(image: np.ndarray, rois: Sequence[ROI]) -> np.ndarray:
+    """SampleROIs semantics (tools/SampleROIs.cxx:104-170): one row per ROI
+    of raw voxel values in ITK scan order (x fastest). ROIs must share size."""
+    sizes = {r.size for r in rois}
+    if len(sizes) > 1:
+        raise ValueError("All ROIs must have the same size")
+    rows = []
+    img = np.asarray(image)
+    for r in rois:
+        crop = img[r.slices()]
+        # ITK scan order: x fastest -> transpose to (z, y, x) then ravel C-order
+        rows.append(crop.transpose(2, 1, 0).reshape(-1))
+    return np.stack(rows) if rows else np.zeros((0, 0))
+
+
+def extract_labels(
+    label_image: np.ndarray,
+    rois: Sequence[ROI],
+    ignore: Sequence[int] = (),
+    dominant: int | None = None,
+    dominant_threshold: float = 0.0,
+) -> List[int]:
+    """ExtractLabels semantics (tools/ExtractLabels.cxx:165-210): per-ROI
+    mode label, skipping ignore-list values; if `dominant` is given and its
+    fraction exceeds `dominant_threshold`, it wins."""
+    img = np.asarray(label_image)
+    out = []
+    ignore_set = set(int(v) for v in ignore)
+    for r in rois:
+        crop = img[r.slices()].reshape(-1)
+        vals, counts = np.unique(crop, return_counts=True)
+        keep = [
+            (c, v) for v, c in zip(vals.tolist(), counts.tolist())
+            if int(v) not in ignore_set
+        ]
+        if not keep:
+            out.append(0)
+            continue
+        total = sum(c for c, _ in keep)
+        if dominant is not None:
+            dom = [(c, v) for c, v in keep if int(v) == int(dominant)]
+            if dom and dom[0][0] / total > dominant_threshold:
+                out.append(int(dominant))
+                continue
+        keep.sort(key=lambda cv: (-cv[0], cv[1]))
+        out.append(int(keep[0][1]))
+    return out

@@ -1,5 +1,6 @@
 """The port's CLI against ife_tpu's on the same tiny NIfTI files: output
-files agree in f32 within the per-channel budget of docs/design.md; plus the
+files agree in f32 within the per-channel budget of docs/design.md, and the
+bag tools' hist specs, bags and ROI files agree with ife_tpu's; plus the
 package-level contracts (no JAX import, TF32 off, `python -m` entry)."""
 import os
 import subprocess
@@ -14,7 +15,8 @@ from ife_tpu.cli.main import main as j_main
 from ife_tpu.core.volume import Volume as JVolume
 from ife_tpu.core.volume import sphere_mask, synthetic_ct
 from ife_tpu.io import read_volume as j_read, write_volume as j_write
-from ife_tpu.ops.features import FEATURE_NAMES
+from ife_tpu.io import read_hist_spec
+from ife_tpu.ops.features import FEATURE_NAMES, features8_auto
 from ife_tpu_torch.cli import commands as TC
 from ife_tpu_torch.cli.main import main as t_main
 from ife_tpu_torch.io import read_volume as t_read
@@ -138,7 +140,14 @@ def test_sharded_is_refused_and_only_the_slice_is_registered(workdir, capsys):
     assert "not yet ported" in capsys.readouterr().err
     assert set(TC.REGISTRY) == {"extract-features", "hessian-features",
                                 "masked-normalized-convolution",
-                                "gradient-features"}
+                                "gradient-features", "determine-bin-edges",
+                                "make-bag", "generate-rois"}
+    for argv in (["make-bag", "-i", "x", "-m", "x", "-b", "x", "-o", "x",
+                  "-s", "1", "--sharded"],
+                 ["determine-bin-edges", "-l", "x", "-o", "x", "-s", "1",
+                  "--bins", "4", "--sharded"]):
+        assert t_main(argv) == 1
+        assert "not yet ported" in capsys.readouterr().err
 
 
 def test_python_m_entry_point_runs(workdir):
@@ -176,3 +185,123 @@ def test_tf32_is_off_after_import():
 
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+
+
+# ---------------------------------------------------------------------------
+# the bag tools: determine-bin-edges -> make-bag [--device], generate-rois
+# ---------------------------------------------------------------------------
+
+BAG_SCALES = ("0.6", "1.2")
+
+
+def _features_f32(d, name):
+    """ife_tpu's f32 features of one image at each bag scale, as its CLI
+    computes them: [(X, Y, Z, 8)] per scale."""
+    vol, mask = j_read(str(d / name)), j_read(str(d / "mask.nii.gz"))
+    m = (np.asarray(mask.data) != 0).astype(np.uint8)
+    return [np.asarray(features8_auto(jnp.asarray(vol.data, jnp.float32),
+                                      jnp.asarray(m), float(s), vol.spacing))
+            for s in BAG_SCALES], m
+
+
+@pytest.fixture(scope="module")
+def bin_edges(workdir):
+    d = workdir
+    (d / "pairs.txt").write_text(f"{d / 'noise.nii.gz'},{d / 'mask.nii.gz'}\n"
+                                 f"{d / 'img.nii.gz'} , {d / 'mask.nii.gz'}\n")
+    args = ["-l", d / "pairs.txt", "-s", *BAG_SCALES, "--bins", "6",
+            "--foreground", "1", "2", "--samples", "400", "--seed", "5"]
+    _run(t_main, "determine-bin-edges", *args, "-o", d / "t_spec.txt")
+    _run(j_main, "determine-bin-edges", *args, "-o", d / "j_spec.txt")
+    return d / "t_spec.txt", d / "j_spec.txt"
+
+
+def test_determine_bin_edges_matches_ife_tpu(workdir, bin_edges):
+    # Each edge is one sampled feature value (the same sample indices: the
+    # same seed and count); an f32 feature differs from ife_tpu's by at most
+    # the channel's f32 budget times its scale, and a quantile of perturbed
+    # samples moves by no more than the largest perturbation. So each row
+    # is held to that budget, relative to the channel's scale over both
+    # images.
+    t_path, j_path = bin_edges
+    t_lines = t_path.read_text().splitlines()
+    assert t_lines[:2] == j_path.read_text().splitlines()[:2]
+    t_rows, j_rows = read_hist_spec(str(t_path)), read_hist_spec(str(j_path))
+    assert len(t_rows) == 16 and all(r.size == 5 for r in t_rows)
+    scale = np.zeros((2, 8))
+    for name in ("noise.nii.gz", "img.nii.gz"):
+        feats, m = _features_f32(workdir, name)
+        for i, f in enumerate(feats):
+            scale[i] = np.maximum(scale[i], np.abs(f[m != 0]).max(0))
+    for h, (t, j) in enumerate(zip(t_rows, j_rows)):
+        i, k = divmod(h, 8)
+        err = np.abs(t - j).max() / max(scale[i, k], 1.0)
+        assert err <= F32_BUDGET[FEATURE_NAMES[k]], (h, err)
+
+
+@pytest.mark.parametrize("device", [False, True])
+def test_make_bag_matches_ife_tpu(workdir, bin_edges, device):
+    # Both CLIs bin with the one spec ife_tpu wrote, on the same ROIs (same
+    # seed). A voxel whose f32 feature lies within the channel's f32 budget
+    # of an edge may bin differently in the two packages; every histogram
+    # without such a voxel must be equal to the bit, and the others may
+    # differ by at most (such voxels) / (masked voxels) per bin.
+    d = workdir
+    _, spec = bin_edges
+    flag = ["--device"] if device else []
+    args = ["-i", d / "noise.nii.gz", "-m", d / "mask.nii.gz", "-b", spec,
+            "-s", *BAG_SCALES, "-n", "6", "--roi-size", "5,6,4", "--seed", "0",
+            *flag]
+    _run(t_main, "make-bag", *args, "-o", d / f"t_bag{device}")
+    _run(j_main, "make-bag", *args, "-o", d / f"j_bag{device}")
+    assert ((d / f"t_bag{device}.ROIInfo").read_bytes()
+            == (d / f"j_bag{device}.ROIInfo").read_bytes())
+    t_bag = np.loadtxt(d / f"t_bag{device}.bag", delimiter=",")
+    j_bag = np.loadtxt(d / f"j_bag{device}.bag", delimiter=",")
+    assert t_bag.shape == j_bag.shape == (6, 16 * 6)
+    rois = TC._get_rois(
+        type("A", (), dict(roi_file=str(d / f"j_bag{device}.ROIInfo")))(), None)
+    feats, m = _features_f32(d, "noise.nii.gz")
+    edges = read_hist_spec(str(spec))
+    n_exact = 0
+    for r, roi in enumerate(rois):
+        inside = m[roi.slices()] != 0
+        for h, e in enumerate(edges):
+            i, k = divmod(h, 8)
+            v = feats[i][roi.slices()][..., k][inside]
+            scale = max(np.abs(feats[i][..., k][m != 0]).max(), 1.0)
+            tol = F32_BUDGET[FEATURE_NAMES[k]] * scale
+            near = int((np.abs(v[:, None] - e[None, :]) <= tol).any(1).sum())
+            got, want = t_bag[r, h * 6:(h + 1) * 6], j_bag[r, h * 6:(h + 1) * 6]
+            if near == 0:
+                n_exact += 1
+                np.testing.assert_array_equal(got, want, err_msg=f"roi {r} hist {h}")
+            else:
+                assert np.abs(got - want).max() <= near / v.size + 1e-6
+    # the edges are sampled feature values, so some ROIs hold a voxel at an
+    # edge; most histograms still have none
+    assert n_exact >= 0.5 * len(rois) * len(edges)
+
+
+def test_generate_rois_matches_ife_tpu(workdir):
+    d = workdir
+    args = ["-m", d / "mask.nii.gz", "-n", "7", "--size", "5,3,4",
+            "--mask-value", "2", "--seed", "3"]
+    _run(t_main, "generate-rois", *args, "-o", d / "t.roi")
+    _run(j_main, "generate-rois", *args, "-o", d / "j.roi")
+    assert (d / "t.roi").read_bytes() == (d / "j.roi").read_bytes()
+    assert len((d / "t.roi").read_text().splitlines()) == 7
+
+
+def test_host_modules_import_without_jax():
+    code = (
+        "import sys\n"
+        "import ife_tpu_torch.roi, ife_tpu_torch.stats, ife_tpu_torch.io\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'ife_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": REPO})
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr

@@ -121,11 +121,12 @@ def test_smooth_yz_and_xs_stream_kernels_match_plain(cuda, shape, sigma):
 def test_cuda_tensors_launch_kernels_never_plain_twins(cuda, monkeypatch):
     from ife_tpu_torch.kernels import (
         features8_post as post_mod, features8_sweep as sweep_mod,
-        hessian_eig as he_mod, normalized_conv as nc_mod,
+        hessian_eig as he_mod, histogram as hist_mod, normalized_conv as nc_mod,
     )
     from ife_tpu_torch.ops.features import (
         features8_auto_channels, features8_dispatch_branch,
     )
+    from ife_tpu_torch.stats import histogram_counts
 
     def refuse(*a, **k):
         raise AssertionError("plain twin called for a CUDA tensor")
@@ -135,7 +136,10 @@ def test_cuda_tensors_launch_kernels_never_plain_twins(cuda, monkeypatch):
                       (nc_mod, "normalized_conv_plain"),
                       (nc_mod, "smooth_yz_plain"),
                       (sweep_mod, "features8_sweep_plain"),
-                      (sweep_mod, "features8_xs_stream_plain")):
+                      (sweep_mod, "features8_xs_stream_plain"),
+                      (hist_mod, "histogram_plain"),
+                      (hist_mod, "histogram_boxes_plain"),
+                      (hist_mod, "_counts_plain")):
         monkeypatch.setattr(mod, name, refuse)
     img, mask = _inputs((13, 12, 11), cuda)
     sp = (0.78, 0.78, 1.0)
@@ -145,6 +149,7 @@ def test_cuda_tensors_launch_kernels_never_plain_twins(cuda, monkeypatch):
     for sigma in (1.2, 2.4, 4.8):
         features8_auto_channels(img, mask, sigma, sp)
     K.fused_hessian_eig(img, SPACING)
+    histogram_counts(img, torch.linspace(-900.0, -100.0, 31, dtype=torch.float64))
     torch.cuda.synchronize()
     assert {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES} == dict.fromkeys(
         K.LAUNCHES, 1)
@@ -179,3 +184,124 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda):
         K.fused_features8_xs_stream(img, img, mask.double(), 1.0)
     with pytest.raises(ValueError, match="sweep_fits"):
         K.fused_features8_sweep(img, mask, 1.0, (1.0, 0.01, 1.0))
+
+
+# ---------------------------------------------------------------------------
+# the histogram kernel (csrc/histogram.cu): counts equal to the twin's,
+# exactly (integer atomics do not depend on their order)
+# ---------------------------------------------------------------------------
+
+def _hist_values(rng, n, edges, dev):
+    v = rng.standard_normal(n).astype(np.float32)
+    plant = np.concatenate([[np.nan, np.inf, -np.inf],
+                            np.asarray(edges, np.float32).ravel()])[:n]
+    v[: plant.size] = plant
+    return torch.from_numpy(v).to(dev)
+
+
+def _hist_edges(rng, C, E):
+    """(C, E) sorted f64 edges with a run of duplicates, +-inf at the ends."""
+    e = np.sort(rng.standard_normal((C, E)), axis=1)
+    if E >= 6:
+        e[:, 2:6] = e[:, 2:3]
+        e[:, 0], e[:, -1] = -np.inf, np.inf
+    return torch.from_numpy(e)
+
+
+def _hist_weights(rng, kind, shape, dev):
+    if kind is None:
+        return None
+    w = rng.integers(0, 3, shape)
+    dtype = {"uint8": torch.uint8, "int32": torch.int32, "bool": torch.bool,
+             "float": torch.float32}[kind]
+    return torch.from_numpy(w).to(dtype).to(dev)
+
+
+@pytest.mark.parametrize("E", [0, 1, 31, 200, 4096])
+@pytest.mark.parametrize("weights", [None, "uint8", "int32", "bool", "float"])
+def test_histogram_multi_kernel_matches_plain(cuda, E, weights):
+    rng = np.random.default_rng(E + 7)
+    n = 100_003  # not a multiple of a block or a warp
+    edges = _hist_edges(rng, 3, E)
+    chans = [_hist_values(rng, n, edges, cuda) for _ in range(3)]
+    w = _hist_weights(rng, weights, n, cuda)
+    for e in (edges, edges[0]):  # per-channel and shared edges
+        got = K.histogram_counts_multi(chans, e, w)
+        assert got.dtype == torch.int32 and got.shape == (3, E + 1)
+        assert torch.equal(got, K.histogram_counts_multi_plain(chans, e, w))
+    one = K.histogram_counts_kernel(chans[0], edges[0], w)
+    assert torch.equal(one, K.histogram_counts_multi_plain(chans[:1], edges[0], w)[0])
+    assert torch.equal(K.histogram_counts_multi([c[:0] for c in chans], edges),
+                       torch.zeros((3, E + 1), dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("C,E", [(64, 4096), (70, 31)])
+def test_histogram_kernel_global_path_and_channel_groups(cuda, C, E):
+    # 64 x 4097 bins exceed a block's shared memory: the kernel counts in
+    # global memory; 70 channels run as two launches of <= 64 channels
+    from ife_tpu_torch.kernels.histogram import _plan
+
+    rng = np.random.default_rng(C)
+    n = 20_011
+    edges = _hist_edges(rng, C, E)
+    chans = [_hist_values(rng, n, edges[c], cuda) for c in range(C)]
+    w = _hist_weights(rng, "uint8", n, cuda)
+    assert (_plan(C, E, n, 1, cuda)[0] == 0) == (E == 4096)
+    before = K.LAUNCHES["histogram"]
+    got = K.histogram_counts_multi(chans, edges, w)
+    assert K.LAUNCHES["histogram"] - before == -(-C // 64)
+    assert torch.equal(got, K.histogram_counts_multi_plain(chans, edges, w))
+
+
+@pytest.mark.parametrize("E", [1, 31, 4096])
+@pytest.mark.parametrize("weights", ["uint8", None])
+def test_histogram_boxes_kernel_matches_plain(cuda, E, weights):
+    from ife_tpu_torch.kernels.histogram import _edges_f32_round_down
+
+    rng = np.random.default_rng(E)
+    shape, size = (40, 37, 33), (11, 9, 13)
+    edges = _hist_edges(rng, 8, E)
+    chans = [_hist_values(rng, int(np.prod(shape)), edges[c], cuda).reshape(shape)
+             for c in range(8)]
+    w = _hist_weights(rng, weights, shape, cuda)
+    if w is not None:
+        w[29:, 28:, 20:] = 0  # the last box holds no weight
+    starts = np.concatenate([rng.integers(0, 20, (40, 3)), [[29, 28, 20]]])
+    got = K.histogram_boxes(chans, w, starts, size, edges)
+    want = K.histogram_boxes_plain(chans, w, starts, size,
+                                   _edges_f32_round_down(edges.to(cuda)))
+    assert got.shape == (41, 8, E + 1)
+    assert torch.equal(got, want)
+    if w is not None:
+        assert int(got[-1].sum()) == 0
+
+
+def test_histogram_kernel_512_cubed_eight_channels(cuda):
+    # the config-4 shape: 8 f32 channels at 512^3, 31 shared edges, mask
+    # weights
+    g = torch.Generator(device=cuda).manual_seed(0)
+    shape = (512, 512, 512)
+    chans = [torch.randn(shape, device=cuda, generator=g) * 300.0 - 600.0
+             for _ in range(8)]
+    chans[0][0, 0, :3] = torch.tensor([float("nan"), float("inf"), -float("inf")])
+    w = (torch.rand(shape, device=cuda, generator=g) > 0.25).to(torch.uint8)
+    edges = torch.linspace(-1200.0, 600.0, 31, dtype=torch.float64)
+    got = K.histogram_counts_multi(chans, edges, w)
+    assert torch.equal(got, K.histogram_counts_multi_plain(chans, edges, w))
+    assert int(got[0].sum()) == int(w.sum())
+
+
+def test_histogram_wrappers_reject_what_the_kernel_does_not_take(cuda):
+    from ife_tpu_torch.stats import histogram_counts
+
+    v = torch.zeros((4, 4, 4), device=cuda)
+    e = torch.tensor([0.0, 1.0])
+    with pytest.raises(ValueError, match="float32"):
+        histogram_counts(v.double(), e)
+    with pytest.raises(ValueError, match="float32"):
+        K.histogram_boxes([v.double()], None, [[0, 0, 0]], (2, 2, 2), e[None])
+    with pytest.raises(ValueError, match="CUDA"):
+        K.histogram_boxes([v, v.cpu()], None, [[0, 0, 0]], (2, 2, 2),
+                          torch.stack([e, e]))
+    with pytest.raises(ValueError, match="non-decreasing"):
+        K.histogram_counts_multi([v], torch.tensor([1.0, 0.0]))

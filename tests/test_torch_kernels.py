@@ -213,11 +213,25 @@ def test_build_is_keyed_by_the_sources():
     assert path.parent.parent == _build.BUILD_ROOT
     assert {p.name for p in _build._sources()[0]} == {
         "hessian_eig.cu", "normalized_conv.cu", "features8_post.cu",
-        "features8_sweep.cu"}
+        "features8_sweep.cu", "histogram.cu"}
     assert {p.name for p in _build._sources()[1]} == {
         "features8_tail.cuh", "fir.cuh"}
     assert set(_build.LAUNCHES) == {"hessian_eig", "normalized_conv",
                                     "features8_post", "features8_sweep",
-                                    "features8_xs_stream", "smooth_yz"}
+                                    "features8_xs_stream", "smooth_yz",
+                                    "histogram"}
     # every C entry the wrappers launch has a declared signature
     assert {f"ife_{k}" for k in _build.LAUNCHES} == set(_build._SIGNATURES)
+
+
+def test_build_runs_the_compiles_together_and_reports_a_failure():
+    # build() starts one nvcc per source at once through _run_all; here
+    # with stand-in commands, since this machine has no nvcc
+    import sys
+
+    outs = _build._run_all([[sys.executable, "-c", f"print({i})"]
+                            for i in range(3)])
+    assert [o.strip() for o in outs] == ["0", "1", "2"]
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        _build._run_all([[sys.executable, "-c", "print(1)"],
+                         [sys.executable, "-c", "import sys; sys.exit(3)"]])
