@@ -12,11 +12,16 @@ failing phase exits non-zero:
   3. kernels  each kernel against its plain PyTorch twin on the card, at
               (128,124,120) and (64,64,64), spacing (0.78,0.78,1.0) and
               (0.7,0.9,1.2), sigma 0.6/1.2/2.4/4.8 (the sweep and xs-stream
-              kernels where their rings fit shared memory); the histogram
+              kernels where their rings fit shared memory; the tiled
+              normalized convolution with 1-4 slabs, also against the
+              untiled kernel; the windowed post kernel at three block
+              shapes); the multi-scale kernels features8_ys_multi and
+              features8_sweep_multi with 1, 2 and 3 scales, ys_multi also on
+              a thin volume whose y radius exceeds Y; the histogram
               kernel over the features8 channels, whole-volume and box
               forms, E 1/31/4096, weighted and not, with NaN, +-inf and
               duplicate edges, once on its global-memory path;
-  4. main     two paths of user entry points, the launch counters reset
+  4. main     three paths of user entry points, the launch counters reset
               before each and read after it. Features: the CLI
               (extract-features -s 0.6 2.4, hessian-features --fused) on a
               256x256x128 NIfTI, outputs checked against the plain f64 ops,
@@ -25,16 +30,29 @@ failing phase exits non-zero:
               determine-bin-edges -s 0.6 2.4 --bins 32 over two volumes,
               make-bag --device and make-bag with that spec; the spec
               checked against the plain twins' pipeline, the device bag
-              against the host bag. Every kernel must have launched;
+              against the host bag. Multi-scale:
+              multiscale_features8_fused at sigma (2.4, 4.8) and the
+              four-scale stack of bench.py config 3 (sigma 0.6, 1.2 through
+              fused_features8_sweep_multi, 2.4, 4.8 through
+              multiscale_features8_fused) at 256x256x128 and 512^3, every
+              scale checked against the plain f64 ops and the per-scale
+              pass; sigma 4.8 once more through the tiled normalized
+              convolution and the windowed post kernel. Every kernel must
+              have launched, features8_ys_multi exactly once per
+              multiscale_features8_fused call;
   5. full     512^3 f32: kernel and plain times (CUDA events, median of 5
               with spread) and kernel-vs-plain checks per kernel and sigma,
-              the features8 pass per sigma, the device's copy rate, and
+              the features8 pass per sigma, the multi-scale kernels beside
+              the per-scale passes they replace, the four-scale stack at
+              256^3 (bench.py's random 75% mask) and 512^3 both ways, the
+              device's copy rate, and
               the histogram kernel at the bench.py config-4 shape (8
               channels, 31 edges, mask weights: the sphere, and bench.py's
               random 75% mask), at 4096 edges, and on 50 ROIs of 41^3 per
               sigma beside the feature pass;
   6. profile  device time per CUDA kernel launch of one features8 pass per
-              sigma, one Hessian+eig pass and one config-4 histogram
+              sigma, one Hessian+eig pass, one config-4 histogram, one
+              multiscale_features8_fused pass and one sweep_multi pass
               (torch.profiler, 3 calls each).
 
 Kernel vs plain twin: the kernels are built without FMA contraction and
@@ -43,8 +61,17 @@ where the twin is NaN; the histogram kernel's integer counts exactly); the relat
 max|kernel - plain| / max(max|plain|, 1) per channel with eigenvalue
 channels as value-sorted triples and the normalized convolution inside the
 mask, is printed beside it. The CLI outputs are held against the plain f64
-ops within 1e-4 of that measure. The line before the last is
-{"kernels": [...]}; the last line is
+ops within 1e-4 of that measure, the scales of the multi-scale stack within
+1e-4 or twice the distance of the per-scale f32 pass from them (the f32
+floor of a wide sigma's second differences). The line before the last is
+{"kernels": [...]}: per kernel its launches on the main paths, its time, its
+plain twin's time and its bound at 512^3. The bound is the larger of the
+bytes the function must move (each input read once, each output written
+once) over 3.35 TB/s and its arithmetic (counted from this run's shapes and
+radii) over 67 TFLOP/s, the published peaks of the H100 SXM. library_ms is
+null throughout: no single PyTorch call computes any of these functions
+(each is a chain of pads, per-axis convolutions, a divide and a closed-form
+eigen solve, or a search plus a scatter). The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -80,16 +107,48 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                   "ife_tpu/kernels/fused.py:1839"),
     "histogram": ("ife_tpu_torch/csrc/histogram.cu",
                   "ife_tpu/kernels/histogram.py:83"),
+    # the x/z passes ahead of the ys-multi kernel; XLA band einsums in
+    # ife_tpu's multiscale_features8_fused (no Pallas kernel there)
+    "smooth_xz": ("ife_tpu_torch/csrc/normalized_conv.cu",
+                  "ife_tpu/ops/features.py:325"),
+    "normalized_conv_tiled": ("ife_tpu_torch/csrc/normalized_conv.cu",
+                              "ife_tpu/kernels/fused.py:1271"),
+    "features8_post_windowed": ("ife_tpu_torch/csrc/features8_post.cu",
+                                "ife_tpu/kernels/fused.py:1865"),
+    "features8_ys_multi": ("ife_tpu_torch/csrc/features8_ys_multi.cu",
+                           "ife_tpu/kernels/fused.py:1634"),
+    "features8_sweep_multi": ("ife_tpu_torch/csrc/features8_sweep.cu",
+                              "ife_tpu/kernels/fused.py:2055"),
 }
 # the kernels each main path must launch
 FEATURE_PATH = ("hessian_eig", "normalized_conv", "features8_post",
                 "features8_sweep", "features8_xs_stream", "smooth_yz")
 BAG_PATH = ("features8_sweep", "features8_xs_stream", "smooth_yz", "histogram")
+MULTISCALE_PATH = ("smooth_xz", "features8_ys_multi", "features8_sweep_multi",
+                   "normalized_conv_tiled", "features8_post_windowed")
 # the sigma whose 512^3 times stand in the {"kernels": ...} line: one the
-# dispatcher sends to the kernel at 0.78 mm
+# dispatcher (or the multi-scale path) sends to the kernel at 0.78 mm
 REPORT_SIGMA = {"normalized_conv": 4.8, "features8_post": 4.8,
                 "features8_sweep": 1.2, "features8_xs_stream": 2.4,
-                "smooth_yz": 2.4}
+                "smooth_yz": 2.4, "smooth_xz": 4.8,
+                "normalized_conv_tiled": 4.8, "features8_post_windowed": 4.8}
+# the sigmas at which phase 5 runs the kernels of this table (every sigma
+# for the others): the twins at 512^3 are slow
+FULL_SIGMAS = {"smooth_xz": (2.4, 4.8), "normalized_conv_tiled": (4.8,),
+               "features8_post_windowed": (4.8,)}
+# the scale sets of the multi-scale kernels: bench.py config 3 splits its
+# four scales so (the small ones through sweeps, the large ones through
+# multiscale_features8_fused)
+SWEEP_SIGMAS = (0.6, 1.2)
+YS_SIGMAS = (2.4, 4.8)
+# published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s and
+# float32 FLOP/s outside the tensor cores
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = 67e12
+# floating-point operations per voxel of the shared tail, counted from
+# csrc/features8_tail.cuh: 42 in the differences and the gradient
+# magnitude, ~110 in the eigen solve and its features
+TAIL_OPS = 150
 
 
 class PhaseError(RuntimeError):
@@ -252,8 +311,82 @@ def kernel_pairs(img, mask, sigma, sp):
          lambda: K.fused_features8_xs_stream(num, den, mask, sigma, sp,
                                              stack=False),
          lambda: K.features8_xs_stream_plain(num, den, mask, sigma, sp), None),
+        ("smooth_xz",
+         lambda: K.fused_smooth_xz(img, mask, sigma, sp),
+         lambda: K.smooth_xz_plain(img, mask, sigma, sp), None),
+        ("normalized_conv_tiled",
+         lambda: K.fused_normalized_conv_sweep_tiled(img, mask, sigma, sp,
+                                                     n_tiles=2),
+         lambda: K.normalized_conv_tiled_plain(img, mask, sigma, sp,
+                                               n_tiles=2), mask != 0),
+        ("features8_post_windowed",
+         lambda: K.fused_features8_post(s_ref, mask, sp, stack=False),
+         lambda: K.features8_post_plain(s_ref, mask, sp), None),
     ]
     return [pair for pair in pairs if fits.get(pair[0], True)]
+
+
+def multi_check(name, got, ref):
+    """kernel_check per scale of a multi-scale kernel's output; the worst
+    (relative, absolute) error."""
+    errs = [kernel_check(f"{name} scale {i}", g, r)
+            for i, (g, r) in enumerate(zip(got, ref))]
+    return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
+def ys_multi_pair(img, mask, sigmas, sp):
+    """(kernel call, plain twin call) of features8_ys_multi on the inputs
+    multiscale_features8_fused gives it: the twins' x/z-smoothed volumes."""
+    from ife_tpu_torch import kernels as K
+
+    pairs = [K.smooth_xz_plain(img, mask, s, sp) for s in sigmas]
+    nums, dens = [p[0] for p in pairs], [p[1] for p in pairs]
+    return (lambda: K.fused_features8_ys_multi(nums, dens, mask, sigmas, sp,
+                                               stack=False),
+            lambda: K.features8_ys_multi_plain(nums, dens, mask, sigmas, sp))
+
+
+def multi_kernel_checks(img, mask, sp, errs):
+    """The multi-scale kernels against their twins with 1, 2 and 3 scales;
+    the tiled normalized convolution against the untiled kernel; the
+    windowed post kernel at other block shapes."""
+    from ife_tpu_torch import kernels as K
+
+    line = []
+    for sigmas in ((4.8,), YS_SIGMAS, (0.6, 2.4, 4.8)):
+        kern, plain = ys_multi_pair(img, mask, sigmas, sp)
+        rel, _ = multi_check(f"features8_ys_multi {sigmas}", kern(), plain())
+        errs["features8_ys_multi"].append(rel)
+    line.append("ys_multi S=1,2,3")
+    for sigmas in ((1.2,), SWEEP_SIGMAS, (0.6, 0.9, 1.2)):
+        if not K.sweep_multi_fits(sigmas, sp):
+            raise PhaseError(f"sweep_multi does not take {sigmas} at {sp}")
+        labels = mask * 3.0  # the sweep clamps the mask itself
+        rel, _ = multi_check(
+            f"features8_sweep_multi {sigmas}",
+            K.fused_features8_sweep_multi(img, labels, sigmas, sp, stack=False),
+            K.features8_sweep_multi_plain(img, labels, sigmas, sp))
+        errs["features8_sweep_multi"].append(rel)
+    line.append("sweep_multi S=1,2,3")
+    for sigma in (1.2, 4.8):
+        untiled = K.fused_normalized_conv_sweep(img, mask, sigma, sp)
+        for n_tiles in (1, 2, 3, 4):
+            tiled = K.fused_normalized_conv_sweep_tiled(img, mask, sigma, sp,
+                                                        n_tiles=n_tiles)
+            if not bit_equal((tiled,), (untiled,)):
+                raise PhaseError(f"normalized_conv_tiled s={sigma} n_tiles="
+                                 f"{n_tiles}: differs from the untiled kernel")
+    line.append("nc tiled 1-4 slabs == untiled")
+    s_ref = K.normalized_conv_plain(img, mask, 1.2, sp)
+    want = K.features8_post_plain(s_ref, mask, sp)
+    for block in (1, (64, 8), (5, 1000)):
+        rel, _ = kernel_check(
+            f"features8_post_windowed block {block}",
+            K.fused_features8_post(s_ref, mask, sp, block=block, stack=False),
+            want)
+        errs["features8_post_windowed"].append(rel)
+    line.append("post windowed blocks 1, (64,8), (5,1000)")
+    return line
 
 
 def phase_kernels(errs):
@@ -276,10 +409,20 @@ def phase_kernels(errs):
                     errs[name].append(rel)
                     part.append(f"{name} {rel:.1e}")
                 line.append(f"s={sigma}: " + " ".join(part))
+            line += multi_kernel_checks(img, mask, sp, errs)
             torch.cuda.synchronize()
             say("kernels", f"{shape} spacing {sp}, bit-equal to the twins: "
                 + "; ".join(line))
         hist_kernel_checks(img, mask, shape, errs)
+    # a thin volume: both y radii (14 and 28 voxels) exceed Y = 9, every
+    # tap row is a clamped one (the dense-dot branch of ife_tpu's _banded_dot)
+    img, mask = _inputs((40, 9, 33), 0, dev)
+    kern, plain = ys_multi_pair(img, mask, YS_SIGMAS, SPACINGS[0])
+    rel, _ = multi_check("features8_ys_multi thin", kern(), plain())
+    errs["features8_ys_multi"].append(rel)
+    torch.cuda.synchronize()
+    say("kernels", "(40, 9, 33) features8_ys_multi, y radii 14 and 28 > Y: "
+        f"bit-equal to the twin, rel {rel:.1e}")
 
 
 def hist_edges(chans, E):
@@ -558,6 +701,122 @@ def phase_bags(tmp):
     return launches
 
 
+def config3_stack(img, mask, sp=FULL_SPACING):
+    """The four-scale feature stack of bench.py config 3 as its multi_fused
+    composes it on the accelerator: the two small scales through the sweep
+    (here one fused_features8_sweep_multi launch), the two large ones
+    through multiscale_features8_fused. Four tuples of eight channels, in
+    the order of SIGMAS."""
+    from ife_tpu_torch.kernels import fused_features8_sweep_multi
+    from ife_tpu_torch.ops.features import multiscale_features8_fused
+
+    small = fused_features8_sweep_multi(img, mask, SWEEP_SIGMAS, sp,
+                                        stack=False)
+    large = multiscale_features8_fused(img, mask, YS_SIGMAS, sp, stack=False)
+    return tuple(small) + tuple(large)
+
+
+def per_scale_stack(img, mask, sp=FULL_SPACING):
+    """The same four scales, one features8 pass each."""
+    from ife_tpu_torch.ops.features import features8_auto_channels
+
+    return tuple(features8_auto_channels(img, mask, s, sp) for s in SIGMAS)
+
+
+def phase_multiscale(big_img, big_mask):
+    """The multi-scale path of user entry points, counters reset first;
+    returns the counts. At 256x256x128 every scale is held against the
+    plain f64 ops and against the per-scale pass on the same card; at 512^3
+    the stack is run for its shape and finiteness."""
+    from ife_tpu_torch.kernels import (
+        LAUNCHES, fused_features8_post, fused_normalized_conv_sweep_tiled,
+        reset_launches,
+    )
+    from ife_tpu_torch.ops.features import (
+        clamp_mask, features8, features8_auto_channels,
+        multiscale_features8_fused,
+    )
+
+    shape, sp = (256, 256, 128), FULL_SPACING
+    img, mask = _inputs(shape, 1, "cuda")
+    torch.cuda.synchronize()
+    reset_launches()
+    pair = multiscale_features8_fused(img, mask, YS_SIGMAS, sp, stack=True)
+    if LAUNCHES["features8_ys_multi"] != 1 or LAUNCHES["smooth_xz"] != 2:
+        raise PhaseError("multiscale_features8_fused: expected one "
+                         f"features8_ys_multi launch, counted {dict(LAUNCHES)}")
+    if tuple(pair.shape) != (2, 8) + shape:
+        raise PhaseError(f"multiscale_features8_fused: shape {tuple(pair.shape)}")
+    stack = config3_stack(img, mask)
+    # sigma 4.8 once more, through the Y-tiled normalized convolution and the
+    # windowed post kernel (the staged tier's other two entries)
+    mf = clamp_mask(mask).float().contiguous()
+    staged = fused_features8_post(
+        fused_normalized_conv_sweep_tiled(img, mf, 4.8, sp, n_tiles=3), mf,
+        sp, stack=False)
+    big = config3_stack(big_img, big_mask)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    for g in big:
+        for c in g:
+            if tuple(c.shape) != FULL or not bool(torch.isfinite(c).all()):
+                raise PhaseError("config-3 stack at 512^3: output not finite "
+                                 f"or not {FULL}")
+    del big
+    torch.cuda.empty_cache()
+    say("multiscale", f"launches {launches}")
+    missing = [k for k in MULTISCALE_PATH if launches.get(k, 0) < 1]
+    if missing:
+        raise PhaseError(f"multi-scale path launched no {missing} kernel")
+    if launches["features8_ys_multi"] != 3:
+        raise PhaseError("three multiscale_features8_fused calls should make "
+                         "three features8_ys_multi launches")
+
+    inside = mask != 0
+    for i, sigma in enumerate(YS_SIGMAS):
+        if not bit_equal(stack[2 + i], pair[i].unbind(0)):
+            raise PhaseError("multiscale_features8_fused: stacked and "
+                             "unstacked forms differ")
+    single = features8_auto_channels(img, mask, 4.8, sp)
+    if not bit_equal(staged, single):
+        raise PhaseError("tiled nc + windowed post differ from the sigma-4.8 "
+                         "pass of features8_auto_channels")
+    # every scale against the plain f64 ops (trig eigen path): within TOL,
+    # or no farther from f64 than twice the per-scale f32 pass on the same
+    # card. The f32 smoothing leaves ~1e-6 of |s| in s, which the second
+    # differences of a wide sigma (small derivatives, h^2 = 0.6) magnify
+    # beyond 1e-4 of their own scale in any f32 implementation
+    # (docs/design.md "Precision policy"); sorted eigenvalues add the
+    # sqrt(ulp) floor near repeated eigenvalues, as in phase_main. The
+    # distance from the per-scale pass itself is printed.
+    eig, rest = (2, 3, 4), (0, 1, 5, 6, 7)
+
+    def errors(a, b):
+        return (feature_errors([a[i] for i in rest], [b[i] for i in rest], ())[0],
+                feature_errors([a[i] for i in eig], [b[i] for i in eig])[0])
+
+    for got, sigma in zip(stack, SIGMAS):
+        for c in got:
+            if tuple(c.shape) != shape or not bool(torch.isfinite(c).all()):
+                raise PhaseError(f"stack s={sigma}: not finite or not {shape}")
+            if bool((c[~inside] != 0).any()):
+                raise PhaseError(f"stack s={sigma}: nonzero outside the mask")
+        want = features8(img.double(), mask, sigma, sp).unbind(-1)
+        one = features8_auto_channels(img, mask, sigma, sp)
+        e_rest, e_eig = errors(got, want)
+        o_rest, o_eig = errors(one, want)
+        d_rest, d_eig = errors(got, one)
+        say("multiscale", f"s={sigma}: from the f64 plain ops: other channels "
+            f"{e_rest:.2e}, sorted eigenvalues {e_eig:.2e} (the per-scale "
+            f"pass: {o_rest:.2e}, {o_eig:.2e}); from the per-scale pass: "
+            f"{d_rest:.2e}, {d_eig:.2e}")
+        if e_rest > max(TOL, 2 * o_rest) or e_eig > max(TOL, 2 * o_eig):
+            raise PhaseError(f"multi-scale stack s={sigma}: too far from the "
+                             "f64 plain ops")
+        del want, one
+    return launches
+
+
 def timed(label, fn):
     med, lo, hi = cuda_ms(fn)
     say("full", f"{label}: {med:.3f} ms (min {lo:.3f}, max {hi:.3f})")
@@ -592,6 +851,8 @@ def phase_full(img, mask, errs, results):
 
     for sigma in SIGMAS:
         for name, kern, plain, inside in kernel_pairs(img, mask, sigma, sp):
+            if sigma not in FULL_SIGMAS.get(name, SIGMAS):
+                continue
             km = timed(f"s={sigma} {name} kernel", kern)
             pm = timed(f"s={sigma} {name} plain", plain)
             rel, ab = kernel_check(f"{name} 512^3 s={sigma}", kern(), plain(),
@@ -611,6 +872,139 @@ def phase_full(img, mask, errs, results):
         torch.cuda.empty_cache()
     say("full", f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(card_line(), flush=True)
+
+
+def phase_full_multi(img, mask, errs, results):
+    """The multi-scale kernels at 512^3 beside what they replace, the tiled
+    normalized convolution beside the untiled one, and the four-scale stack
+    of bench.py config 3 both ways at 512^3 and at bench.py's own shape."""
+    from ife_tpu_torch import kernels as K
+    from ife_tpu_torch.ops.features import (
+        features8_auto_channels, multiscale_features8_fused,
+    )
+
+    sp = FULL_SPACING
+    kern, plain = ys_multi_pair(img, mask, YS_SIGMAS, sp)
+    km = timed(f"features8_ys_multi kernel, S=2 {YS_SIGMAS}", kern)
+    pm = timed("features8_ys_multi plain, S=2", plain)
+    rel, ab = multi_check("features8_ys_multi 512^3", kern(), plain())
+    errs["features8_ys_multi"].append(rel)
+    results["features8_ys_multi"] = dict(ms=km, plain_ms=pm, max_abs_err=ab)
+    say("full", f"features8_ys_multi S=2: bit-equal to plain, rel {rel:.2e}")
+    del kern, plain
+    torch.cuda.empty_cache()
+    ones = []
+    for sigma in YS_SIGMAS:
+        kern, _ = ys_multi_pair(img, mask, (sigma,), sp)
+        ones.append(timed(f"features8_ys_multi kernel, S=1 ({sigma})", kern))
+        del kern
+    torch.cuda.empty_cache()
+    m_ms = timed(f"multiscale_features8_fused {YS_SIGMAS}",
+                 lambda: multiscale_features8_fused(img, mask, YS_SIGMAS, sp))
+    p_ms = [timed(f"s={s} features8 pass",
+                  lambda s=s: features8_auto_channels(img, mask, s, sp))
+            for s in YS_SIGMAS]
+    say("full", f"sigma {YS_SIGMAS}: one ys_multi launch {km:.3f} ms vs one "
+        f"launch per scale {sum(ones):.3f} ms; multiscale_features8_fused "
+        f"{m_ms:.3f} ms vs the two per-scale passes {sum(p_ms):.3f} ms")
+
+    km = timed(f"features8_sweep_multi kernel, S=2 {SWEEP_SIGMAS}",
+               lambda: K.fused_features8_sweep_multi(img, mask, SWEEP_SIGMAS, sp))
+    pm = timed("features8_sweep_multi plain, S=2",
+               lambda: K.features8_sweep_multi_plain(img, mask, SWEEP_SIGMAS, sp))
+    rel, ab = multi_check(
+        "features8_sweep_multi 512^3",
+        K.fused_features8_sweep_multi(img, mask, SWEEP_SIGMAS, sp, stack=False),
+        K.features8_sweep_multi_plain(img, mask, SWEEP_SIGMAS, sp))
+    errs["features8_sweep_multi"].append(rel)
+    results["features8_sweep_multi"] = dict(ms=km, plain_ms=pm, max_abs_err=ab)
+    torch.cuda.empty_cache()
+    two = [timed(f"s={s} features8_sweep kernel",
+                 lambda s=s: K.fused_features8_sweep(img, mask, s, sp))
+           for s in SWEEP_SIGMAS]
+    say("full", f"sigma {SWEEP_SIGMAS}: sweep_multi bit-equal to plain, rel "
+        f"{rel:.2e}; one launch {km:.3f} ms vs two sweeps {sum(two):.3f} ms")
+
+    untiled = K.fused_normalized_conv_sweep(img, mask, 4.8, sp)
+    u_ms = timed("s=4.8 normalized_conv kernel (untiled)",
+                 lambda: K.fused_normalized_conv_sweep(img, mask, 4.8, sp))
+    for n_tiles in (2, 3):
+        t_ms = timed(f"s=4.8 normalized_conv_tiled kernel, n_tiles={n_tiles}",
+                     lambda: K.fused_normalized_conv_sweep_tiled(
+                         img, mask, 4.8, sp, n_tiles=n_tiles))
+        tiled = K.fused_normalized_conv_sweep_tiled(img, mask, 4.8, sp,
+                                                    n_tiles=n_tiles)
+        if not bit_equal((tiled,), (untiled,)):
+            raise PhaseError(f"normalized_conv_tiled n_tiles={n_tiles} differs "
+                             "from the untiled kernel at 512^3")
+        say("full", f"s=4.8 nc tiled n_tiles={n_tiles}: equal to the untiled "
+            f"kernel to the bit, {t_ms:.3f} ms vs {u_ms:.3f} ms")
+        del tiled
+    del untiled
+    torch.cuda.empty_cache()
+
+    # bench.py config 3: 256^3, normal(-600, 200) voxels, a random 75% mask
+    g = torch.Generator(device=img.device).manual_seed(3)
+    x256 = torch.randn((256,) * 3, device=img.device, generator=g) * 200.0 - 600.0
+    m256 = (torch.rand((256,) * 3, device=img.device, generator=g) > 0.25).float()
+    for label, x, m in (("256^3 (random 75% mask)", x256, m256),
+                        ("512^3 (sphere mask)", img, mask)):
+        f_ms = timed(f"config-3 stack {label}: sweep_multi + "
+                     "multiscale_features8_fused", lambda: config3_stack(x, m))
+        p_ms = timed(f"config-3 stack {label}: one features8 pass per scale",
+                     lambda: per_scale_stack(x, m))
+        vox4 = 4 * x.numel()
+        say("full", f"config-3 stack {label}: {f_ms:.3f} ms "
+            f"({vox4 / (f_ms * 1e-3) / 1e9:.2f} Gvox/s) one-launch forms vs "
+            f"{p_ms:.3f} ms ({vox4 / (p_ms * 1e-3) / 1e9:.2f} Gvox/s) per scale")
+        torch.cuda.empty_cache()
+    print(card_line(), flush=True)
+
+
+def fir_ops(sigma, axes):
+    """Multiplies and adds per voxel of the Gaussian passes along `axes`
+    over numerator and denominator at FULL_SPACING."""
+    from ife_tpu_torch.ops.stencil import smooth_taps
+
+    return sum(2 * 2 * len(smooth_taps(sigma, FULL_SPACING[a])[0])
+               for a in axes)
+
+
+def kernel_bounds(nvox, hist_work):
+    """name -> (bound_ms, bound_by): the least time the card could take for
+    each kernel's work at the shape its ms was measured at. Bytes: each
+    input volume read once, each output written once. Operations: the FIR's
+    multiplies and adds for this run's radii, the c*f product and the divide
+    where the kernel has them, TAIL_OPS for the tail."""
+    vol, r = 4 * nvox, REPORT_SIGMA
+    nc_ops = (fir_ops(r["normalized_conv"], (0, 1, 2)) + 2) * nvox
+    work = {
+        "hessian_eig": (7 * vol, TAIL_OPS * nvox),
+        "normalized_conv": (3 * vol, nc_ops),
+        "features8_post": (10 * vol, TAIL_OPS * nvox),
+        "features8_sweep": (10 * vol, (fir_ops(r["features8_sweep"], (0, 1, 2))
+                                       + 2 + TAIL_OPS) * nvox),
+        "features8_xs_stream": (11 * vol, (fir_ops(r["features8_xs_stream"],
+                                                   (0,)) + 1 + TAIL_OPS) * nvox),
+        "smooth_yz": (4 * vol, (fir_ops(r["smooth_yz"], (1, 2)) + 1) * nvox),
+        "histogram": hist_work,
+        "smooth_xz": (4 * vol, (fir_ops(r["smooth_xz"], (0, 2)) + 1) * nvox),
+        "normalized_conv_tiled": (3 * vol, nc_ops),
+        "features8_post_windowed": (10 * vol, TAIL_OPS * nvox),
+        "features8_ys_multi": (
+            (10 * len(YS_SIGMAS) + 1) * vol,
+            sum(fir_ops(s, (1,)) + 1 + TAIL_OPS for s in YS_SIGMAS) * nvox),
+        "features8_sweep_multi": (
+            (8 * len(SWEEP_SIGMAS) + 2) * vol,
+            sum(fir_ops(s, (0, 1, 2)) + 2 + TAIL_OPS
+                for s in SWEEP_SIGMAS) * nvox),
+    }
+    out = {}
+    for name, (nbytes, ops) in work.items():
+        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FLOPS * 1e3
+        out[name] = (max(t_bytes, t_ops),
+                     "bytes" if t_bytes >= t_ops else "operations")
+    return out
 
 
 def config4_inputs(img, mask):
@@ -647,9 +1041,11 @@ def phase_full_hist(img, mask, errs, results):
     errs["histogram"].append(rel)
     results["histogram"] = dict(ms=km, plain_ms=pm, max_abs_err=ab)
     # bytes the kernel must move: the uint8 mask, and the 8 channels of
-    # every 32-voxel warp that holds a masked voxel
+    # every 32-voxel warp that holds a masked voxel; operations: the five
+    # compares of a search over 31 edges per masked voxel and channel
     warps = int(w.view(-1, 32).any(1).sum())
     gb = (w.numel() + warps * 32 * 4 * 8) / 1e9
+    hist_work = (gb * 1e9, 8 * inside * 5)
     say("full", f"histogram config 4 equal to plain; {inside} masked voxels, "
         f"~{gb:.2f} GB moved -> {gb / (km * 1e-3):.0f} GB/s; "
         f"{8 * inside / (km * 1e-3) / 1e9:.2f} G binnings/s")
@@ -709,6 +1105,7 @@ def phase_full_hist(img, mask, errs, results):
         del feats
         torch.cuda.empty_cache()
     print(card_line(), flush=True)
+    return hist_work
 
 
 def phase_profile(img, mask):
@@ -733,6 +1130,15 @@ def phase_profile(img, mask):
     chans, edges, w = config4_inputs(img, mask)
     passes.append(("histogram config 4",
                    lambda: histogram_counts_multi(chans, edges, w)))
+    from ife_tpu_torch.kernels import fused_features8_sweep_multi
+    from ife_tpu_torch.ops.features import multiscale_features8_fused
+
+    passes.append((f"multiscale_features8_fused {YS_SIGMAS}",
+                   lambda: multiscale_features8_fused(img, mask, YS_SIGMAS,
+                                                      FULL_SPACING)))
+    passes.append((f"features8_sweep_multi {SWEEP_SIGMAS}",
+                   lambda: fused_features8_sweep_multi(img, mask, SWEEP_SIGMAS,
+                                                       FULL_SPACING)))
     for label, fn in passes:
         fn()
         torch.cuda.synchronize()
@@ -777,25 +1183,31 @@ def main() -> int:
             launches, img, mask = phase_main(tmp)
             phase = "bags"
             bag_launches = phase_bags(tmp)
-        launches = {k: launches[k] + bag_launches[k] for k in launches}
+        phase = "multiscale"
+        multi_launches = phase_multiscale(img, mask)
+        launches = {k: launches[k] + bag_launches[k] + multi_launches[k]
+                    for k in launches}
         phase = "full"
         results = {}
         phase_full(img, mask, errs, results)
-        phase_full_hist(img, mask, errs, results)
+        phase_full_multi(img, mask, errs, results)
+        hist_work = phase_full_hist(img, mask, errs, results)
+        bounds = kernel_bounds(img.numel(), hist_work)
         phase = "profile"
         phase_profile(img, mask)
     except PhaseError as e:
         print(f"chip_smoke: phase {phase} failed: {e}", file=sys.stderr)
         return 1
-    # every number below was measured in this run: launches in phase 4
-    # (the feature path's and the bag path's runs added);
-    # ms, plain_ms and max_abs_err at 512^3 (at REPORT_SIGMA for the
-    # smoothing kernels, the config-4 shape for the histogram); max_rel_err
-    # the worst of phases 3 and 5
+    # launches: counted in phase 4 (the three paths' runs added); ms,
+    # plain_ms and max_abs_err: measured at 512^3 (at REPORT_SIGMA for the
+    # smoothing kernels, YS_SIGMAS / SWEEP_SIGMAS for the multi-scale ones,
+    # the config-4 shape for the histogram); bound_ms: computed from the
+    # same shapes; max_rel_err: the worst of phases 3 and 5
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep,
              launches=launches[name], **results[name],
-             max_rel_err=max(errs[name]))
+             bound_ms=bounds[name][0], bound_by=bounds[name][1],
+             library_ms=None, max_rel_err=max(errs[name]))
         for name, (src, rep) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

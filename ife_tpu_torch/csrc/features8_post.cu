@@ -12,6 +12,17 @@
 // thread per voxel, z fastest for coalescing, the shared tail of
 // features8_tail.cuh in registers, exact shape with true-face clamps.
 //
+// ife_features8_post_windowed (features8_post_windowed_kernel) replaces
+// ife_tpu/kernels/fused.py:fused_features8_post (kernel _features8_kernel),
+// the 2-D-grid form whose grid step owned a block of (bx, by) x-y rows and
+// copied its halo window into VMEM by hand. The window has no counterpart
+// here (the neighbours come through L1/L2); what carries over is the
+// ownership: a thread block owns bx planes of by rows of its 32-voxel z
+// strip, and each thread marches along x through its bx planes, carrying
+// the two planes behind the new one in registers, so a step loads the 9
+// values of one plane instead of the 19 of the whole stencil. Same tail,
+// same clamps, same result to the bit.
+//
 // Masking is a select, never a multiply: s is NaN outside the certainty
 // support (the no-epsilon normalized-convolution divide), and NaN * 0 is
 // NaN (ife_tpu/ops/features.py:21-25).
@@ -51,5 +62,70 @@ extern "C" int ife_features8_post(const float* s, const float* mask,
     features8_post_kernel<<<stencil_grid(X, Y, Z),
                             dim3(kStencilBlockZ, kStencilBlockY), 0, stream>>>(
         s, mask, out, (int)X, (int)Y, (int)Z, k);
+    return (int)cudaGetLastError();
+}
+
+__global__ void __launch_bounds__(kStencilBlockZ * kStencilBlockY)
+features8_post_windowed_kernel(const float* __restrict__ s,
+                               const float* __restrict__ mask,
+                               float* __restrict__ out, int X, int Y, int Z,
+                               int bx, int by, StencilRecip k) {
+    const int z = blockIdx.x * kStencilBlockZ + threadIdx.x;
+    if (z >= Z) return;
+    const int zs[3] = {max(z - 1, 0), z, min(z + 1, Z - 1)};
+    const long long plane = (long long)Y * Z;
+    const long long n = (long long)X * plane;
+    const int xa = blockIdx.z * bx, xb = min(xa + bx, X);
+    const int ya = blockIdx.y * by, yb = min(ya + by, Y);
+    for (int y = ya + threadIdx.y; y < yb; y += kStencilBlockY) {
+        const int ys[3] = {max(y - 1, 0), y, min(y + 1, Y - 1)};
+        // v[a] is the 3 x 3 (y, z) neighbourhood in plane clamp(x + a - 1)
+        float v[3][3][3];
+        auto load_plane = [&](int x, float (&w)[3][3]) {
+            const float* p = s + (long long)min(max(x, 0), X - 1) * plane;
+#pragma unroll
+            for (int b = 0; b < 3; ++b)
+#pragma unroll
+                for (int c = 0; c < 3; ++c)
+                    w[b][c] = __ldg(p + (long long)ys[b] * Z + zs[c]);
+        };
+        load_plane(xa - 1, v[1]);
+        load_plane(xa, v[2]);
+        for (int x = xa; x < xb; ++x) {
+#pragma unroll
+            for (int b = 0; b < 3; ++b)
+#pragma unroll
+                for (int c = 0; c < 3; ++c) {
+                    v[0][b][c] = v[1][b][c];
+                    v[1][b][c] = v[2][b][c];
+                }
+            load_plane(x + 1, v[2]);
+            float gm, h[6], f[6];
+            features8_tail(v, k, gm, h, f);
+            const long long i = x * plane + (long long)y * Z + z;
+            const bool inside = __ldg(mask + i) != 0.0f;
+            out[i] = inside ? v[1][1][1] : 0.0f;
+            out[n + i] = inside ? gm : 0.0f;
+#pragma unroll
+            for (int c = 0; c < 6; ++c)
+                out[(c + 2) * n + i] = inside ? f[c] : 0.0f;
+        }
+    }
+}
+
+// As ife_features8_post; a thread block owns bx planes of by rows (>= 1 each).
+extern "C" int ife_features8_post_windowed(const float* s, const float* mask,
+                                           float* out, long long X, long long Y,
+                                           long long Z, long long bx,
+                                           long long by, float r2x, float r2y,
+                                           float r2z, float rxx, float ryy,
+                                           float rzz, cudaStream_t stream) {
+    if (bx < 1 || by < 1) return (int)cudaErrorInvalidValue;
+    const StencilRecip k{r2x, r2y, r2z, rxx, ryy, rzz};
+    const dim3 grid((unsigned)((Z + kStencilBlockZ - 1) / kStencilBlockZ),
+                    (unsigned)((Y + by - 1) / by), (unsigned)((X + bx - 1) / bx));
+    features8_post_windowed_kernel<<<grid, dim3(kStencilBlockZ, kStencilBlockY),
+                                     0, stream>>>(
+        s, mask, out, (int)X, (int)Y, (int)Z, (int)bx, (int)by, k);
     return (int)cudaGetLastError();
 }

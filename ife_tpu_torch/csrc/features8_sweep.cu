@@ -34,6 +34,18 @@
 // the TPU kernels). The y/z halo of the extended tile holds the clamped
 // input rows, which is the ZeroFluxNeumann pad of the plain passes.
 //
+// ife_features8_sweep_multi (features8_sweep_multi_kernel) replaces
+// ife_tpu/kernels/fused.py:fused_features8_sweep_multi: S scales of the sweep
+// in one launch. A block loads each extended raw plane (c*f and c, extended
+// by the LARGEST y and z radii) once and every scale runs its own y and z
+// passes from it into its own x ring, so the image and the mask leave HBM
+// once for all S scales. (The TPU kernel shared rings of raw rows and ran x
+// first; here the rings hold y/z-smoothed planes, which differ per scale, so
+// the raw plane is what is shared and the passes keep the single sweep's
+// order y, z, x: each scale equals fused_features8_sweep, and its plain twin,
+// to the bit.) Scale s emits plane q - rx_s when raw plane q arrives. The
+// taps come as a device array, copied to shared memory by each block.
+//
 // What bounds it on the H100: shared-memory traffic, ~(2ry+1 + 2rz+1 +
 // 2rx+1) * 2 reads per voxel, and the x ring's size, which caps the blocks
 // per SM. HBM sees the image and mask once and the 8 channels written once
@@ -42,6 +54,7 @@
 
 #include "features8_tail.cuh"
 #include "fir.cuh"
+#include "s_ring.cuh"
 
 constexpr int kSweepTileY = 14;
 constexpr int kSweepTileZ = 32;
@@ -50,10 +63,6 @@ constexpr int kSweepSZ = kSweepTileZ + 2;
 constexpr int kSweepCells = kSweepSY * kSweepSZ;
 constexpr int kSweepThreads = 512;  // 256: 1.08x / 1.18x slower at sigma 0.6 / 1.2
 constexpr int kSweepMaxSmem = 227 * 1024;
-
-__device__ __forceinline__ float clamp_unit_mask(float m) {
-    return m < 0.0f ? 0.0f : (m > 1.0f ? 1.0f : m);
-}
 
 // Shared memory, in floats: the x ring of numerator and denominator
 // (2 * (2rx+1) * cells), the ring of three s planes, and (kSmoothYZ) the
@@ -72,6 +81,95 @@ __host__ __device__ inline size_t sweep_smem_floats(bool smooth_yz, int rx,
 // with the next chunk costs ~1/8 of the work
 __host__ inline int sweep_chunk_x(long long X, int rx) {
     return (int)std::min<long long>(X, std::max(64, 16 * (rx + 1)));
+}
+
+// The passes of one plane, shared by the single- and the multi-scale kernel.
+// TapsT is Taps (kernel parameter) or TapsView (shared memory).
+
+// Load c*f and c of plane `src` on the tile extended by ry + 1 rows and
+// rz + 1 columns each side, at clamped positions (the ZeroFluxNeumann pad).
+__device__ __forceinline__ void sweep_load_raw(
+    const float* __restrict__ image, const float* __restrict__ mask,
+    long long src, int y0, int z0, int Y, int Z, int ry, int rz, float* pn,
+    float* pd) {
+    const int PY = kSweepSY + 2 * ry, PZ = kSweepSZ + 2 * rz;
+    // extended cell (i, j) is global (y0 - 1 - ry + i, z0 - 1 - rz + j)
+    for (int idx = threadIdx.x; idx < PY * PZ; idx += blockDim.x) {
+        const int gy = clamp_index(y0 - 1 - ry + idx / PZ, Y);
+        const int gz = clamp_index(z0 - 1 - rz + idx % PZ, Z);
+        const long long off = src + (long long)gy * Z + gz;
+        const float c = clamp_unit_mask(__ldg(mask + off));
+        pn[idx] = __ldg(image + off) * c;  // c*f rounded, as plain
+        pd[idx] = c;
+    }
+}
+
+// q[i][j] = sum_t ty[t] * p[row0 + i + t][col0 + j] for the SY x PZ cells
+// the z pass needs; p has rows of src_pz floats (row0 = col0 = 0 when p was
+// loaded with this scale's own radii).
+template <class TapsT>
+__device__ __forceinline__ void sweep_y_pass(
+    const float* pn, const float* pd, int src_pz, int row0, int col0, int PZ,
+    const TapsT& ty, float* qn, float* qd) {
+    for (int idx = threadIdx.x; idx < kSweepSY * PZ; idx += blockDim.x) {
+        const int i = idx / PZ, j = idx % PZ;
+        float an = 0.0f, ad = 0.0f;
+        for (int t = 0; t <= 2 * ty.r; ++t) {
+            const int e = (row0 + i + t) * src_pz + col0 + j;
+            an = t == 0 ? ty.t[0] * pn[e] : an + ty.t[t] * pn[e];
+            ad = t == 0 ? ty.t[0] * pd[e] : ad + ty.t[t] * pd[e];
+        }
+        qn[idx] = an;
+        qd[idx] = ad;
+    }
+}
+
+template <class TapsT>
+__device__ __forceinline__ void sweep_z_pass(const float* qn, const float* qd,
+                                             int PZ, const TapsT& tz,
+                                             float* xn, float* xd) {
+    for (int idx = threadIdx.x; idx < kSweepCells; idx += blockDim.x) {
+        const int i = idx / kSweepSZ, j = idx % kSweepSZ;
+        float an = 0.0f, ad = 0.0f;
+        for (int t = 0; t <= 2 * tz.r; ++t) {
+            const int e = i * PZ + j + t;
+            an = t == 0 ? tz.t[0] * qn[e] : an + tz.t[t] * qn[e];
+            ad = t == 0 ? tz.t[0] * qd[e] : ad + tz.t[t] * qd[e];
+        }
+        xn[idx] = an;
+        xd[idx] = ad;
+    }
+}
+
+// s plane = G_x num / G_x den from the x ring ([2rx+1][cells] each), whose
+// slot `first` holds the plane of tap 0
+template <class TapsT>
+__device__ __forceinline__ void sweep_x_pass_divide(
+    const float* rn, const float* rd, int first, const TapsT& tx, float* sp) {
+    const int W = 2 * tx.r + 1;
+    for (int idx = threadIdx.x; idx < kSweepCells; idx += blockDim.x) {
+        float an = 0.0f, ad = 0.0f;
+        for (int t = 0, sl = first; t < W; ++t, sl = sl + 1 == W ? 0 : sl + 1) {
+            const int e = sl * kSweepCells + idx;
+            an = t == 0 ? tx.t[0] * rn[e] : an + tx.t[t] * rn[e];
+            ad = t == 0 ? tx.t[0] * rd[e] : ad + tx.t[t] * rd[e];
+        }
+        sp[idx] = an / ad;  // no epsilon: 0/0 = NaN off the support
+    }
+}
+
+// Emit plane p - 1 (its x + 1 neighbour is p) of the chunk [xa, xb), and at
+// the last true plane also plane p itself (x + 1 clamps to p).
+template <bool kClampMask>
+__device__ __forceinline__ void sweep_emit(const float* ring, int p, int xa,
+                                           int xb, int X, int Y, int Z, int y0,
+                                           int z0, const float* mask,
+                                           float* out, const StencilRecip& k) {
+    for (int x = max(p - 1, xa); x <= (p == X - 1 ? p : p - 1); ++x) {
+        if (x >= xb) break;
+        emit_features8_plane<kSweepTileY, kSweepTileZ, kClampMask>(
+            ring, x, X, Y, Z, y0, z0, mask, out, k);
+    }
 }
 
 // kSmoothYZ: a = image f, b = raw mask (clamped here to the certainty c and
@@ -104,7 +202,6 @@ features8_sweep_kernel(const float* __restrict__ a, const float* __restrict__ b,
     const int xa = blockIdx.z * chunk_x;
     const int xb = min(xa + chunk_x, X);
     const long long plane = (long long)Y * Z;
-    const long long n = (long long)X * plane;
     // s planes this block needs, and the input planes (clamped) behind them
     const int p_lo = max(xa - 1, 0);
     const int p_hi = min(xb, X - 1);
@@ -115,39 +212,11 @@ features8_sweep_kernel(const float* __restrict__ a, const float* __restrict__ b,
         float* xn = rn + slot * NC;
         float* xd = rd + slot * NC;
         if (kSmoothYZ) {
-            // extended cell (i, j) is global (y0 - 1 - ry + i, z0 - 1 - rz + j)
-            for (int idx = threadIdx.x; idx < PY * PZ; idx += blockDim.x) {
-                const int gy = clamp_index(y0 - 1 - ry + idx / PZ, Y);
-                const int gz = clamp_index(z0 - 1 - rz + idx % PZ, Z);
-                const long long off = src + (long long)gy * Z + gz;
-                const float c = clamp_unit_mask(__ldg(b + off));
-                pn[idx] = __ldg(a + off) * c;  // c*f rounded, as plain
-                pd[idx] = c;
-            }
+            sweep_load_raw(a, b, src, y0, z0, Y, Z, ry, rz, pn, pd);
             __syncthreads();
-            for (int idx = threadIdx.x; idx < SY * PZ; idx += blockDim.x) {
-                const int i = idx / PZ, j = idx % PZ;
-                float an = 0.0f, ad = 0.0f;
-                for (int t = 0; t <= 2 * ry; ++t) {
-                    const int e = (i + t) * PZ + j;
-                    an = t == 0 ? ty.t[0] * pn[e] : an + ty.t[t] * pn[e];
-                    ad = t == 0 ? ty.t[0] * pd[e] : ad + ty.t[t] * pd[e];
-                }
-                qn[idx] = an;
-                qd[idx] = ad;
-            }
+            sweep_y_pass(pn, pd, PZ, 0, 0, PZ, ty, qn, qd);
             __syncthreads();
-            for (int idx = threadIdx.x; idx < NC; idx += blockDim.x) {
-                const int i = idx / SZ, j = idx % SZ;
-                float an = 0.0f, ad = 0.0f;
-                for (int t = 0; t <= 2 * rz; ++t) {
-                    const int e = i * PZ + j + t;
-                    an = t == 0 ? tz.t[0] * qn[e] : an + tz.t[t] * qn[e];
-                    ad = t == 0 ? tz.t[0] * qd[e] : ad + tz.t[t] * qd[e];
-                }
-                xn[idx] = an;
-                xd[idx] = ad;
-            }
+            sweep_z_pass(qn, qd, PZ, tz, xn, xd);
         } else {
             for (int idx = threadIdx.x; idx < NC; idx += blockDim.x) {
                 const int gy = clamp_index(y0 - 1 + idx / SZ, Y);
@@ -161,60 +230,11 @@ features8_sweep_kernel(const float* __restrict__ a, const float* __restrict__ b,
 
         const int p = q - rx;  // the ring now holds planes p - rx .. p + rx
         if (p < p_lo) continue;
-        float* sp = ring + (p % 3) * NC;
-        const int first = ((p - rx) % W + W) % W;  // ring slot of plane p - rx
-        for (int idx = threadIdx.x; idx < NC; idx += blockDim.x) {
-            float an = 0.0f, ad = 0.0f;
-            for (int t = 0, sl = first; t < W; ++t, sl = sl + 1 == W ? 0 : sl + 1) {
-                const int e = sl * NC + idx;
-                an = t == 0 ? tx.t[0] * rn[e] : an + tx.t[t] * rn[e];
-                ad = t == 0 ? tx.t[0] * rd[e] : ad + tx.t[t] * rd[e];
-            }
-            sp[idx] = an / ad;  // no epsilon: 0/0 = NaN off the support
-        }
+        // ring slot of plane p - rx: tap 0
+        sweep_x_pass_divide(rn, rd, ((p - rx) % W + W) % W, tx,
+                            ring + (p % 3) * NC);
         __syncthreads();
-
-        // emit plane p - 1 (its x + 1 neighbour is p), and at the last true
-        // plane also plane p itself (x + 1 clamps to p)
-        for (int x = max(p - 1, xa); x <= (p == X - 1 ? p : p - 1); ++x) {
-            if (x >= xb) break;
-            const float* s3[3] = {
-                ring + (clamp_index(x - 1, X) % 3) * NC,
-                ring + (x % 3) * NC,
-                ring + (clamp_index(x + 1, X) % 3) * NC};
-            for (int idx = threadIdx.x; idx < kSweepTileY * kSweepTileZ;
-                 idx += blockDim.x) {
-                const int y = y0 + idx / kSweepTileZ;
-                const int z = z0 + idx % kSweepTileZ;
-                if (y >= Y || z >= Z) continue;
-                // s region rows/columns of the clamped neighbours
-                const int iy[3] = {clamp_index(y - 1, Y) - y0 + 1, y - y0 + 1,
-                                   clamp_index(y + 1, Y) - y0 + 1};
-                const int iz[3] = {clamp_index(z - 1, Z) - z0 + 1, z - z0 + 1,
-                                   clamp_index(z + 1, Z) - z0 + 1};
-                float v[3][3][3];
-#pragma unroll
-                for (int da = 0; da < 3; ++da)
-#pragma unroll
-                    for (int db = 0; db < 3; ++db)
-#pragma unroll
-                        for (int dc = 0; dc < 3; ++dc) {
-                            if (da != 1 && db != 1 && dc != 1) continue;
-                            v[da][db][dc] = s3[da][iy[db] * SZ + iz[dc]];
-                        }
-                float gm, h[6], f[6];
-                features8_tail(v, k, gm, h, f);
-                const long long i = x * plane + (long long)y * Z + z;
-                const float m = __ldg(mask + i);
-                const bool inside =
-                    (kSmoothYZ ? clamp_unit_mask(m) : m) != 0.0f;
-                out[i] = inside ? v[1][1][1] : 0.0f;
-                out[n + i] = inside ? gm : 0.0f;
-#pragma unroll
-                for (int c = 0; c < 6; ++c)
-                    out[(c + 2) * n + i] = inside ? f[c] : 0.0f;
-            }
-        }
+        sweep_emit<kSmoothYZ>(ring, p, xa, xb, X, Y, Z, y0, z0, mask, out, k);
         // the next plane overwrites a ring slot the x pass read and, two
         // planes on, the s slot the tail read: the syncs after its loads
         // order those writes after these reads
@@ -281,4 +301,157 @@ extern "C" int ife_features8_xs_stream(const float* num_yz,
     const StencilRecip k{r2x, r2y, r2z, rxx, ryy, rzz};
     return launch_sweep<false>(num_yz, den_yz, mask, out, X, Y, Z, tx, unit,
                                unit, k, stream);
+}
+
+// ---------------------------------------------------------------------------
+// S scales in one launch
+// ---------------------------------------------------------------------------
+
+struct SweepScales {
+    int S;
+    int r[kMaxScales][3];  // x, y, z radius per scale
+};
+
+// Shared memory, in floats: every scale's taps, x rings and three s planes,
+// then one extended raw plane at the largest y and z radii and its y pass.
+__host__ __device__ inline size_t sweep_multi_smem_floats(const SweepScales& sc) {
+    size_t f = 0;
+    int ry = 0, rz = 0;
+    for (int s = 0; s < sc.S; ++s) {
+        f += 2 * (size_t)(sc.r[s][0] + sc.r[s][1] + sc.r[s][2]) + 3;
+        f += 2 * (size_t)(2 * sc.r[s][0] + 1) * kSweepCells + 3 * kSweepCells;
+        ry = sc.r[s][1] > ry ? sc.r[s][1] : ry;
+        rz = sc.r[s][2] > rz ? sc.r[s][2] : rz;
+    }
+    const size_t py = kSweepSY + 2 * ry, pz = kSweepSZ + 2 * rz;
+    return f + 2 * py * pz + 2 * kSweepSY * pz;
+}
+
+// image, mask as in the single sweep; out: (S, 8, X, Y, Z); taps: device
+// array [S][3][kMaxTaps] (x, y, z per scale, 2r+1 floats used of each row).
+__global__ void __launch_bounds__(kSweepThreads)
+features8_sweep_multi_kernel(const float* __restrict__ image,
+                             const float* __restrict__ mask,
+                             float* __restrict__ out, int X, int Y, int Z,
+                             int chunk_x, SweepScales sc,
+                             const float* __restrict__ taps, StencilRecip k) {
+    extern __shared__ float smem[];
+    constexpr int SY = kSweepSY, SZ = kSweepSZ, NC = kSweepCells;
+    int rx_max = 0, ry_max = 0, rz_max = 0;
+    size_t tap_floats = 0, ring_floats = 0;
+    for (int s = 0; s < sc.S; ++s) {
+        rx_max = max(rx_max, sc.r[s][0]);
+        ry_max = max(ry_max, sc.r[s][1]);
+        rz_max = max(rz_max, sc.r[s][2]);
+        tap_floats += 2 * (sc.r[s][0] + sc.r[s][1] + sc.r[s][2]) + 3;
+        ring_floats += (2 * (2 * sc.r[s][0] + 1) + 3) * NC;
+    }
+    const int PY = SY + 2 * ry_max, PZ = SZ + 2 * rz_max;
+    float* st = smem;                    // the taps, scale by scale: x, y, z
+    float* rings = st + tap_floats;      // per scale: rn, rd [W][NC], s [3][NC]
+    float* pn = rings + ring_floats;     // [PY][PZ] raw c*f
+    float* pd = pn + PY * PZ;            // [PY][PZ] raw c
+    float* qn = pd + PY * PZ;            // [SY][<= PZ] y pass
+    float* qd = qn + SY * PZ;
+
+    {
+        float* dst = st;
+        for (int s = 0; s < sc.S; ++s)
+            for (int a = 0; a < 3; ++a) {
+                const int nt = 2 * sc.r[s][a] + 1;
+                const float* src = taps + (size_t)(s * 3 + a) * kMaxTaps;
+                for (int i = threadIdx.x; i < nt; i += blockDim.x)
+                    dst[i] = src[i];
+                dst += nt;
+            }
+    }
+    // ordered before the first y pass by the sync after the first raw load
+
+    const int z0 = blockIdx.x * kSweepTileZ;
+    const int y0 = blockIdx.y * kSweepTileY;
+    const int xa = blockIdx.z * chunk_x;
+    const int xb = min(xa + chunk_x, X);
+    const long long plane = (long long)Y * Z;
+    const long long n = (long long)X * plane;
+    const int p_lo = max(xa - 1, 0);
+    const int p_hi = min(xb, X - 1);
+
+    for (int q = p_lo - rx_max; q <= p_hi + rx_max; ++q) {
+        sweep_load_raw(image, mask, (long long)clamp_index(q, X) * plane, y0,
+                       z0, Y, Z, ry_max, rz_max, pn, pd);
+        __syncthreads();
+        const float* t = st;
+        float* rn = rings;
+        for (int s = 0; s < sc.S; ++s) {
+            const int rx = sc.r[s][0], ry = sc.r[s][1], rz = sc.r[s][2];
+            const int W = 2 * rx + 1;
+            const TapsView tx{rx, t};
+            const TapsView ty{ry, t + W};
+            const TapsView tz{rz, t + W + 2 * ry + 1};
+            float* rd = rn + W * NC;
+            float* ring = rd + W * NC;
+            t += W + 2 * ry + 1 + 2 * rz + 1;
+            float* const rn_s = rn;
+            rn = ring + 3 * NC;  // the next scale's
+            // this scale needs raw planes p_lo - rx .. p_hi + rx only (the
+            // same for every thread of the block)
+            if (q < p_lo - rx || q > p_hi + rx) continue;
+            const int slot = ((q % W) + W) % W;
+            const int pz = SZ + 2 * rz;
+            sweep_y_pass(pn, pd, PZ, ry_max - ry, rz_max - rz, pz, ty, qn, qd);
+            __syncthreads();
+            sweep_z_pass(qn, qd, pz, tz, rn_s + slot * NC, rd + slot * NC);
+            __syncthreads();
+            const int p = q - rx;
+            if (p < p_lo) continue;
+            sweep_x_pass_divide(rn_s, rd, ((p - rx) % W + W) % W, tx,
+                                ring + (p % 3) * NC);
+            __syncthreads();
+            sweep_emit<true>(ring, p, xa, xb, X, Y, Z, y0, z0, mask,
+                             out + (long long)s * 8 * n, k);
+        }
+        // the next raw load overwrites pn, pd, which the last y pass read
+        // before at least one sync; every ring hazard is as in the single
+        // sweep
+    }
+}
+
+// image, mask: contiguous (X, Y, Z) float32; out: contiguous (S, 8, X, Y, Z);
+// taps: DEVICE array [S][3][kMaxTaps] of float32; radii: HOST array [S][3]
+// (x, y, z per scale).
+extern "C" int ife_features8_sweep_multi(const float* image, const float* mask,
+                                         float* out, long long X, long long Y,
+                                         long long Z, long long S,
+                                         const float* taps,
+                                         const long long* radii,
+                                         float r2x, float r2y, float r2z,
+                                         float rxx, float ryy, float rzz,
+                                         cudaStream_t stream) {
+    if (S < 1 || S > kMaxScales) return (int)cudaErrorInvalidValue;
+    SweepScales sc{};
+    sc.S = (int)S;
+    int rx_max = 0;
+    for (int s = 0; s < S; ++s)
+        for (int a = 0; a < 3; ++a) {
+            const long long r = radii[s * 3 + a];
+            if (r < 0 || 2 * r + 1 > kMaxTaps) return (int)cudaErrorInvalidValue;
+            sc.r[s][a] = (int)r;
+            if (a == 0) rx_max = std::max(rx_max, (int)r);
+        }
+    const size_t smem = sweep_multi_smem_floats(sc) * sizeof(float);
+    if (smem > (size_t)kSweepMaxSmem) return (int)cudaErrorInvalidValue;
+    if (smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            features8_sweep_multi_kernel,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    const StencilRecip k{r2x, r2y, r2z, rxx, ryy, rzz};
+    const int chunk = sweep_chunk_x(X, rx_max);
+    const dim3 grid((unsigned)((Z + kSweepTileZ - 1) / kSweepTileZ),
+                    (unsigned)((Y + kSweepTileY - 1) / kSweepTileY),
+                    (unsigned)((X + chunk - 1) / chunk));
+    features8_sweep_multi_kernel<<<grid, kSweepThreads, smem, stream>>>(
+        image, mask, out, (int)X, (int)Y, (int)Z, chunk, sc, taps, k);
+    return (int)cudaGetLastError();
 }

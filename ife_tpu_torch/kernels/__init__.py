@@ -6,10 +6,14 @@ PyTorch twin, in the same module, for a CPU tensor; ``LAUNCHES`` counts the
 kernel launches per kernel. Counterparts of ife_tpu/kernels/fused.py:
 
   fused_hessian_eig_stream, fused_hessian_eig -> csrc/hessian_eig.cu
-  fused_normalized_conv_sweep                 -> csrc/normalized_conv.cu
-  fused_features8_post_stream                 -> csrc/features8_post.cu
+  fused_normalized_conv_sweep,
+  fused_normalized_conv_sweep_tiled           -> csrc/normalized_conv.cu
+  fused_features8_post_stream,
+  fused_features8_post                        -> csrc/features8_post.cu
   fused_features8_sweep,
+  fused_features8_sweep_multi,
   fused_features8_xs_stream                   -> csrc/features8_sweep.cu
+  fused_features8_ys_multi                    -> csrc/features8_ys_multi.cu
 
 and of ife_tpu/kernels/histogram.py:
 
@@ -17,22 +21,32 @@ and of ife_tpu/kernels/histogram.py:
   (-> histogram_counts_kernel), plus the per-ROI
   binning (-> histogram_boxes)                -> csrc/histogram.cu
 
-plus fused_smooth_yz (csrc/normalized_conv.cu), the y/z passes ahead of
-the xs-stream kernel. ife_tpu's fused_features8 dispatcher is torch code
-here: ops.features.fused_features8.
+plus fused_smooth_yz and fused_smooth_xz (csrc/normalized_conv.cu), the y/z
+passes ahead of the xs-stream kernel and the x/z passes ahead of the
+ys-multi kernel. ife_tpu's fused_features8 dispatcher is torch code here:
+ops.features.fused_features8. Still without a counterpart:
+fused_features8_tap and fused_features8_xs.
 """
 from ife_tpu_torch.kernels._build import LAUNCHES, reset_launches  # noqa: F401
 from ife_tpu_torch.kernels.features8_post import (  # noqa: F401
     features8_post_plain,
+    fused_features8_post,
     fused_features8_post_stream,
 )
 from ife_tpu_torch.kernels.features8_sweep import (  # noqa: F401
+    features8_sweep_multi_plain,
     features8_sweep_plain,
     features8_xs_stream_plain,
     fused_features8_sweep,
+    fused_features8_sweep_multi,
     fused_features8_xs_stream,
     sweep_fits,
+    sweep_multi_fits,
     xs_stream_fits,
+)
+from ife_tpu_torch.kernels.features8_ys_multi import (  # noqa: F401
+    features8_ys_multi_plain,
+    fused_features8_ys_multi,
 )
 from ife_tpu_torch.kernels.histogram import (  # noqa: F401
     histogram_boxes,
@@ -49,7 +63,11 @@ from ife_tpu_torch.kernels.hessian_eig import (  # noqa: F401
 )
 from ife_tpu_torch.kernels.normalized_conv import (  # noqa: F401
     fused_normalized_conv_sweep,
+    fused_normalized_conv_sweep_tiled,
+    fused_smooth_xz,
     fused_smooth_yz,
     normalized_conv_plain,
+    normalized_conv_tiled_plain,
+    smooth_xz_plain,
     smooth_yz_plain,
 )

@@ -40,10 +40,15 @@ NVCC_FLAGS = (
     "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# kernel name -> number of successful launches of its C entry point
+# kernel name -> number of successful launches of its C entry point.
+# "normalized_conv_tiled" has no entry of its own: it counts the launches of
+# ife_normalized_conv that fused_normalized_conv_sweep_tiled makes, one per
+# slab.
 LAUNCHES = {"hessian_eig": 0, "normalized_conv": 0, "features8_post": 0,
             "features8_sweep": 0, "features8_xs_stream": 0, "smooth_yz": 0,
-            "histogram": 0}
+            "histogram": 0, "smooth_xz": 0, "normalized_conv_tiled": 0,
+            "features8_post_windowed": 0, "features8_ys_multi": 0,
+            "features8_sweep_multi": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
@@ -62,7 +67,17 @@ _SIGNATURES = {
     "ife_features8_xs_stream": [_P, _P, _P, _P, _I, _I, _I, _FP, _I]
                                + [_F] * 6 + [_P],
     "ife_histogram": [_P, _I, _P, _I, _P, _I, _P] + [_I] * 8 + [_P, _P],
+    "ife_smooth_xz": [_P, _P, _P, _P, _I, _I, _I, _FP, _I, _FP, _I, _P],
+    "ife_features8_post_windowed": [_P, _P, _P, _I, _I, _I, _I, _I]
+                                   + [_F] * 6 + [_P],
+    "ife_features8_ys_multi": [_P, _P, _I, _P, _P, _I, _I, _I, _P, _P]
+                              + [_F] * 6 + [_P],
+    "ife_features8_sweep_multi": [_P, _P, _P, _I, _I, _I, _I, _P, _P]
+                                 + [_F] * 6 + [_P],
 }
+
+MAX_TAPS = 257    # csrc/fir.cuh kMaxTaps: radius <= 128 voxels
+MAX_SCALES = 8    # csrc/fir.cuh kMaxScales
 
 _lock = threading.Lock()
 _lib = None
@@ -152,10 +167,10 @@ def lib() -> ctypes.CDLL:
         return _lib
 
 
-def launch(kernel: str, device: torch.device, *args) -> None:
+def launch(kernel: str, device: torch.device, *args, count_as=None) -> None:
     """Call the C entry ``ife_<kernel>`` on `device`'s current stream
     (appended as the last argument); raise on a launch error, else count
-    one launch of `kernel`."""
+    one launch of `kernel` (of `count_as` when given)."""
     handle = lib()
     entry = f"ife_{kernel}"
     with torch.cuda.device(device):
@@ -164,7 +179,7 @@ def launch(kernel: str, device: torch.device, *args) -> None:
     if err != 0:
         msg = handle.ife_error_string(err).decode()
         raise RuntimeError(f"{entry} failed: CUDA error {err} ({msg})")
-    LAUNCHES[kernel] += 1
+    LAUNCHES[count_as or kernel] += 1
 
 
 def reset_launches() -> None:
@@ -189,6 +204,18 @@ def check_cuda_volume(name: str, t: torch.Tensor, shape=None) -> None:
     if min(t.shape) < 1 or max(t.shape[:2]) > 65535:
         raise ValueError(f"{name}: X and Y must be in [1, 65535], Z >= 1, "
                          f"got {tuple(t.shape)}")
+
+
+def scale_taps_tensor(rows, device: torch.device) -> torch.Tensor:
+    """The taps of a multi-scale launch on the card: one row of MAX_TAPS
+    float32 per tap tuple of `rows`, zero beyond its 2r+1 taps (csrc/fir.cuh
+    kMaxTaps; the kernels copy a row's head to shared memory)."""
+    host = torch.zeros((len(rows), MAX_TAPS), dtype=torch.float32)
+    for i, taps in enumerate(rows):
+        if len(taps) > MAX_TAPS:
+            raise ValueError(f"{len(taps)} taps > {MAX_TAPS}")
+        host[i, :len(taps)] = torch.tensor(taps, dtype=torch.float64).float()
+    return host.to(device)
 
 
 def use_plain_twin(name: str, t: torch.Tensor) -> bool:

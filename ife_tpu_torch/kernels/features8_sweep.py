@@ -7,6 +7,12 @@ and fused_features8_xs_stream (y/z-smoothed numerator and denominator +
 mask -> the 8 channels: the x pass, the divide, the tail). Bound on the H100
 by shared-memory traffic and the x ring's size; HBM sees the inputs once and
 the 8 channels written once. See the source for the design.
+
+``fused_features8_sweep_multi`` replaces
+ife_tpu/kernels/fused.py:fused_features8_sweep_multi: S scales of the sweep
+in one launch of a second kernel in the same source, which loads each raw
+plane once for all scales and keeps one x ring per scale. Each scale equals
+fused_features8_sweep to the bit.
 """
 from __future__ import annotations
 
@@ -16,7 +22,7 @@ from typing import Sequence
 import torch
 
 from ife_tpu_torch.kernels._build import (
-    check_cuda_volume, launch, use_plain_twin,
+    MAX_SCALES, check_cuda_volume, launch, scale_taps_tensor, use_plain_twin,
 )
 from ife_tpu_torch.kernels.features8_post import features8_post_plain
 from ife_tpu_torch.kernels.hessian_eig import stencil_reciprocals
@@ -157,3 +163,92 @@ def fused_features8_xs_stream(num_yz: torch.Tensor, den_yz: torch.Tensor,
            num_yz.data_ptr(), den_yz.data_ptr(), mask.data_ptr(),
            out.data_ptr(), X, Y, Z, tx, ntx, *stencil_reciprocals(spacing))
     return out if stack else tuple(out.unbind(0))
+
+
+def sweep_multi_smem_bytes(radii) -> int:
+    """Shared memory of one block of the multi-scale sweep (csrc
+    sweep_multi_smem_floats) for `radii`, one (rx, ry, rz) per scale: every
+    scale's taps, x ring and three s planes, then one extended raw plane at
+    the largest y and z radii and its y pass."""
+    floats = sum(2 * (rx + ry + rz) + 3 + 2 * (2 * rx + 1) * _CELLS
+                 + 3 * _CELLS for rx, ry, rz in radii)
+    pz = _SZ + 2 * max(r[2] for r in radii)
+    floats += 2 * (_SY + 2 * max(r[1] for r in radii)) * pz + 2 * _SY * pz
+    return 4 * floats
+
+
+def sweep_multi_fits(sigmas, spacing: Sequence[float],
+                     truncate: float = 4.5) -> bool:
+    """True when one fused_features8_sweep_multi launch takes this set of
+    scales: at most MAX_SCALES of them, every radius within the taps a launch
+    carries, the block within shared memory."""
+    radii = [_radii(s, spacing, truncate) for s in sigmas]
+    return (1 <= len(radii) <= MAX_SCALES
+            and max(max(r) for r in radii) <= MAX_RADIUS
+            and sweep_multi_smem_bytes(radii) <= _MAX_SMEM)
+
+
+def features8_sweep_multi_plain(image: torch.Tensor, mask: torch.Tensor,
+                                sigmas,
+                                spacing: Sequence[float] = (1.0, 1.0, 1.0),
+                                truncate: float = 4.5):
+    """The multi-scale sweep's plain twin: features8_sweep_plain per scale.
+    A tuple of S tuples of eight (X, Y, Z) tensors."""
+    return tuple(features8_sweep_plain(image, mask, float(s), spacing,
+                                       truncate) for s in sigmas)
+
+
+def fused_features8_sweep_multi(image: torch.Tensor, mask: torch.Tensor,
+                                sigmas,
+                                spacing: Sequence[float] = (1.0, 1.0, 1.0),
+                                truncate: float = 4.5, stack: bool = True,
+                                clamps=None):
+    """features8 of `image` at the S scales `sigmas` in one pass that reads
+    the image and the mask once; per scale exactly fused_features8_sweep. An
+    (S, 8, X, Y, Z) tensor when stack, else a tuple of S tuples of eight.
+
+    `clamps` (the true faces of a halo-extended shard block) is not yet
+    ported: it comes with the sharded path.
+
+    CUDA tensors (contiguous float32 of one shape) make ONE kernel launch,
+    or raise when the scale set does not fit one (sweep_multi_fits): there is
+    no per-scale fallback. CPU tensors run the plain twin; any other input
+    raises.
+    """
+    if clamps is not None:
+        raise NotImplementedError(
+            "fused_features8_sweep_multi(clamps=...) is not yet ported: it "
+            "serves the sharded path (ife_tpu.parallel)")
+    sigmas = tuple(float(s) for s in sigmas)
+    if not sigmas:
+        raise ValueError("fused_features8_sweep_multi: no scale given")
+    if use_plain_twin("fused_features8_sweep_multi", image):
+        groups = features8_sweep_multi_plain(image, mask, sigmas, spacing,
+                                             truncate)
+        if stack:
+            return torch.stack([torch.stack(g, 0) for g in groups], 0)
+        return groups
+    check_cuda_volume("fused_features8_sweep_multi image", image)
+    check_cuda_volume("fused_features8_sweep_multi mask", mask,
+                      shape=image.shape)
+    if not sweep_multi_fits(sigmas, spacing, truncate):
+        raise ValueError(
+            f"fused_features8_sweep_multi: sigmas={sigmas} at spacing "
+            f"{tuple(spacing)} need more scales, taps or shared memory than "
+            f"one launch has (sweep_multi_fits)")
+    S = len(sigmas)
+    per = [[smooth_taps(s, float(h), float(truncate)) for h in spacing]
+           for s in sigmas]
+    taps = scale_taps_tensor([t for scale in per for t, _ in scale],
+                             image.device)
+    radii = (ctypes.c_int64 * (3 * S))(*(r for scale in per for _, r in scale))
+    X, Y, Z = image.shape
+    out = torch.empty((S, 8, X, Y, Z), dtype=image.dtype, device=image.device)
+    launch("features8_sweep_multi", image.device,
+           image.data_ptr(), mask.data_ptr(), out.data_ptr(), X, Y, Z, S,
+           taps.data_ptr(), radii, *stencil_reciprocals(spacing))
+    # `taps` is freed when this returns; the caching allocator reuses the
+    # block only in stream order, after the launch that reads it
+    if stack:
+        return out
+    return tuple(tuple(g.unbind(0)) for g in out.unbind(0))

@@ -24,6 +24,10 @@ the device of the image, as ife_tpu chooses by platform:
     tensor runs;
   * ``features8`` — the plain composition of ops (trig eigen path with the
     reference's diagonal branch): what a CPU tensor runs.
+
+``multiscale_features8_fused`` runs several scales at once: the x and z
+smoothing per scale, then one kernel launch for the y smoothing, the divide
+and the tail of every scale.
 """
 from __future__ import annotations
 
@@ -37,9 +41,10 @@ from ife_tpu_torch.kernels.features8_sweep import (
     fused_features8_sweep, fused_features8_xs_stream, sweep_fits,
     xs_stream_fits,
 )
+from ife_tpu_torch.kernels.features8_ys_multi import fused_features8_ys_multi
 from ife_tpu_torch.kernels.hessian_eig import fused_hessian_eig_stream
 from ife_tpu_torch.kernels.normalized_conv import (
-    fused_normalized_conv_sweep, fused_smooth_yz,
+    fused_normalized_conv_sweep, fused_smooth_xz, fused_smooth_yz,
 )
 from ife_tpu_torch.ops.eigen import eigenvalue_features
 from ife_tpu_torch.ops.stencil import (
@@ -190,6 +195,31 @@ def features8_auto(image, mask, sigma, spacing=(1.0, 1.0, 1.0), truncate=4.5):
             features8_auto_channels(image, mask, sigma, spacing, truncate),
             dim=-1)
     return features8(image, mask, float(sigma), tuple(spacing), truncate)
+
+
+def multiscale_features8_fused(
+    image: torch.Tensor,
+    mask: torch.Tensor,
+    sigmas: Sequence[float],
+    spacing: Sequence[float] = (1.0, 1.0, 1.0),
+    truncate: float = 4.5,
+    stack: bool = True,
+):
+    """The feature passes of all `sigmas` ending in ONE kernel launch
+    (counterpart of ife_tpu's multiscale_features8_fused): the mask is
+    clamped, mask*image and the mask are smoothed along x and z per scale
+    (fused_smooth_xz), then fused_features8_ys_multi does, for every scale,
+    the y smoothing, the no-epsilon divide and the masked feature tail.
+    Returns (S, 8, X, Y, Z) when stack, else a tuple of S tuples of 8.
+
+    CUDA tensors run the kernels, CPU tensors their plain twins."""
+    sigmas = tuple(float(s) for s in sigmas)
+    spacing = tuple(spacing)
+    mf = clamp_mask(mask).to(image.dtype).contiguous()
+    pairs = [fused_smooth_xz(image, mf, s, spacing, truncate) for s in sigmas]
+    return fused_features8_ys_multi(
+        [num for num, _ in pairs], [den for _, den in pairs], mf, sigmas,
+        spacing, truncate, stack=stack)
 
 
 def multiscale_features(

@@ -151,8 +151,10 @@ def test_cuda_tensors_launch_kernels_never_plain_twins(cuda, monkeypatch):
     K.fused_hessian_eig(img, SPACING)
     histogram_counts(img, torch.linspace(-900.0, -100.0, 31, dtype=torch.float64))
     torch.cuda.synchronize()
-    assert {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES} == dict.fromkeys(
-        K.LAUNCHES, 1)
+    single = ("hessian_eig", "normalized_conv", "features8_post",
+              "features8_sweep", "features8_xs_stream", "smooth_yz", "histogram")
+    assert {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES} == {
+        k: int(k in single) for k in K.LAUNCHES}
 
 
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16, torch.int16,
@@ -184,6 +186,164 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda):
         K.fused_features8_xs_stream(img, img, mask.double(), 1.0)
     with pytest.raises(ValueError, match="sweep_fits"):
         K.fused_features8_sweep(img, mask, 1.0, (1.0, 0.01, 1.0))
+
+
+# ---------------------------------------------------------------------------
+# the multi-scale path: smooth_xz, features8_ys_multi, features8_sweep_multi,
+# the windowed post kernel, the tiled normalized convolution
+# ---------------------------------------------------------------------------
+
+def _flat(groups):
+    return [c for g in groups for c in g]
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("sigma", [0.6, 2.4, 4.8])
+def test_smooth_xz_kernel_matches_plain(cuda, shape, sigma):
+    img, mask = _inputs(shape, cuda)
+    num, den = K.fused_smooth_xz(img, mask, sigma, SPACING)
+    pnum, pden = K.smooth_xz_plain(img, mask, sigma, SPACING)
+    assert _same(num, pnum) and _same(den, pden)
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(40, 9, 33)])
+@pytest.mark.parametrize("sigmas", [(4.8,), (2.4, 4.8), (0.6, 2.4, 4.8),
+                                    (9.0, 0.3)])
+def test_ys_multi_kernel_matches_plain(cuda, shape, sigmas):
+    # (40, 9, 33): every y radius but the smallest exceeds Y
+    img, mask = _inputs(shape, cuda)
+    pairs = [K.smooth_xz_plain(img, mask, s, SPACING) for s in sigmas]
+    nums, dens = [p[0] for p in pairs], [p[1] for p in pairs]
+    before = K.LAUNCHES["features8_ys_multi"]
+    got = K.fused_features8_ys_multi(nums, dens, mask, sigmas, SPACING,
+                                     stack=False)
+    assert K.LAUNCHES["features8_ys_multi"] - before == 1
+    want = K.features8_ys_multi_plain(nums, dens, mask, sigmas, SPACING)
+    assert all(bool(torch.isfinite(g).all()) for g in _flat(got))
+    assert all(_same(g, w) for g, w in zip(_flat(got), _flat(want)))
+    stacked = K.fused_features8_ys_multi(nums, dens, mask, sigmas, SPACING)
+    assert stacked.shape == (len(sigmas), 8) + tuple(shape)
+    assert all(torch.equal(c, stacked[i, k])
+               for i, g in enumerate(got) for k, c in enumerate(g))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("sigmas", [(1.2,), (0.6, 1.2), (0.6, 0.9, 1.2)])
+def test_sweep_multi_kernel_matches_plain_and_the_single_sweep(cuda, shape,
+                                                               sigmas):
+    img, mask = _inputs(shape, cuda)
+    labels = mask * 3.0  # the kernel clamps the mask itself
+    assert K.sweep_multi_fits(sigmas, SPACING)
+    before = K.LAUNCHES["features8_sweep_multi"]
+    got = K.fused_features8_sweep_multi(img, labels, sigmas, SPACING,
+                                        stack=False)
+    assert K.LAUNCHES["features8_sweep_multi"] - before == 1
+    want = K.features8_sweep_multi_plain(img, labels, sigmas, SPACING)
+    assert all(bool(torch.isfinite(g).all()) for g in _flat(got))
+    assert all(_same(g, w) for g, w in zip(_flat(got), _flat(want)))
+    for g, s in zip(got, sigmas):
+        one = K.fused_features8_sweep(img, labels, s, SPACING, stack=False)
+        assert all(torch.equal(a, b) for a, b in zip(g, one))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("block", [(8, 128), 1, (64, 8), (5, 7)])
+def test_features8_post_windowed_kernel_matches_plain(cuda, shape, block):
+    img, mask = _inputs(shape, cuda)
+    s = K.normalized_conv_plain(img, mask, 1.2, SPACING)
+    before = K.LAUNCHES["features8_post_windowed"]
+    got = K.fused_features8_post(s, mask, SPACING, block=block, stack=False)
+    assert K.LAUNCHES["features8_post_windowed"] - before == 1
+    want = K.features8_post_plain(s, mask, SPACING)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    assert all(_same(g, w) for g, w in zip(got, want))
+    stream = K.fused_features8_post_stream(s, mask, SPACING, stack=False)
+    assert all(torch.equal(g, w) for g, w in zip(got, stream))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("sigma", [1.2, 4.8])
+@pytest.mark.parametrize("n_tiles", [1, 2, 3, 4])
+def test_nc_tiled_kernel_equals_the_untiled_kernel(cuda, shape, sigma, n_tiles):
+    img, mask = _inputs(shape, cuda)
+    before = dict(K.LAUNCHES)
+    got = K.fused_normalized_conv_sweep_tiled(img, mask, sigma, SPACING,
+                                              n_tiles=n_tiles)
+    assert K.LAUNCHES["normalized_conv_tiled"] - before[
+        "normalized_conv_tiled"] == n_tiles
+    assert K.LAUNCHES["normalized_conv"] == before["normalized_conv"]
+    assert _same(got, K.fused_normalized_conv_sweep(img, mask, sigma, SPACING))
+    assert _same(got, K.normalized_conv_tiled_plain(img, mask, sigma, SPACING,
+                                                    n_tiles=n_tiles))
+
+
+def test_multiscale_path_launches_kernels_never_plain_twins(cuda, monkeypatch):
+    from ife_tpu_torch.kernels import (
+        features8_post as post_mod, features8_sweep as sweep_mod,
+        features8_ys_multi as ys_mod, normalized_conv as nc_mod,
+    )
+    from ife_tpu_torch.ops.features import (
+        features8_auto_channels, multiscale_features8_fused,
+    )
+
+    def refuse(*a, **k):
+        raise AssertionError("plain twin called for a CUDA tensor")
+
+    for mod, name in ((post_mod, "features8_post_plain"),
+                      (nc_mod, "normalized_conv_plain"),
+                      (nc_mod, "normalized_conv_tiled_plain"),
+                      (nc_mod, "smooth_xz_plain"),
+                      (sweep_mod, "features8_sweep_plain"),
+                      (sweep_mod, "features8_sweep_multi_plain"),
+                      (ys_mod, "features8_ys_multi_plain"),
+                      (ys_mod, "features8_post_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    img, mask = _inputs((40, 36, 33), cuda)
+    sp = (0.78, 0.78, 1.0)
+    before = dict(K.LAUNCHES)
+    got = multiscale_features8_fused(img, mask.to(torch.uint8) * 2, (2.4, 4.8),
+                                     sp, stack=False)
+    K.fused_features8_sweep_multi(img, mask, (0.6, 1.2), sp)
+    K.fused_features8_post(
+        K.fused_normalized_conv_sweep_tiled(img, mask, 4.8, sp, n_tiles=3),
+        mask, sp)
+    torch.cuda.synchronize()
+    assert {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES} == {
+        **dict.fromkeys(K.LAUNCHES, 0), "smooth_xz": 2, "features8_ys_multi": 1,
+        "features8_sweep_multi": 1, "normalized_conv_tiled": 3,
+        "features8_post_windowed": 1}
+    # each scale within the f32 budget of the per-scale pass (another order
+    # of the three passes: x, z, y against y, z, x or x, y, z)
+    for g, s in zip(got, (2.4, 4.8)):
+        one = features8_auto_channels(img, mask, s, sp)
+        assert _rel(g[0], one[0]) < 1e-5
+        assert _feature_err(g, one, (2, 3, 4)) < 5e-3
+
+
+def test_multiscale_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    img, mask = _inputs((13, 12, 11), cuda)
+    with pytest.raises(ValueError, match="float32"):
+        K.fused_smooth_xz(img.double(), mask.double(), 1.0)
+    with pytest.raises(ValueError, match="shape"):
+        K.fused_features8_ys_multi([img], [img[:-1].contiguous()], mask, (1.0,))
+    with pytest.raises(ValueError, match="contiguous"):
+        K.fused_features8_ys_multi([img.transpose(0, 2)], [img], mask, (1.0,))
+    with pytest.raises(ValueError, match="scales"):
+        K.fused_features8_ys_multi([img] * 9, [img] * 9, mask, (1.0,) * 9)
+    with pytest.raises(ValueError, match="radius"):
+        K.fused_features8_ys_multi([img], [img], mask, (1.0,), (1.0, 0.01, 1.0))
+    with pytest.raises(ValueError, match="sweep_multi_fits"):
+        K.fused_features8_sweep_multi(img, mask, (2.4, 4.8), (0.78, 0.78, 1.0))
+    with pytest.raises(ValueError, match="CUDA"):
+        K.fused_features8_sweep_multi(img, mask.cpu(), (1.0,))
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        K.fused_features8_sweep_multi(img, mask, (1.0,), clamps=[0, 12, 0, 11])
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        K.fused_features8_post(img, mask, pre_padded=True)
+    with pytest.raises(ValueError, match="shape"):
+        K.fused_features8_post(img, mask[:, :-1].contiguous())
+    with pytest.raises(ValueError, match="float32"):
+        K.fused_normalized_conv_sweep_tiled(img, mask.double(), 1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -213,15 +213,21 @@ def test_build_is_keyed_by_the_sources():
     assert path.parent.parent == _build.BUILD_ROOT
     assert {p.name for p in _build._sources()[0]} == {
         "hessian_eig.cu", "normalized_conv.cu", "features8_post.cu",
-        "features8_sweep.cu", "histogram.cu"}
+        "features8_sweep.cu", "features8_ys_multi.cu", "histogram.cu"}
     assert {p.name for p in _build._sources()[1]} == {
-        "features8_tail.cuh", "fir.cuh"}
+        "features8_tail.cuh", "fir.cuh", "s_ring.cuh"}
     assert set(_build.LAUNCHES) == {"hessian_eig", "normalized_conv",
                                     "features8_post", "features8_sweep",
                                     "features8_xs_stream", "smooth_yz",
-                                    "histogram"}
-    # every C entry the wrappers launch has a declared signature
-    assert {f"ife_{k}" for k in _build.LAUNCHES} == set(_build._SIGNATURES)
+                                    "histogram", "smooth_xz",
+                                    "normalized_conv_tiled",
+                                    "features8_post_windowed",
+                                    "features8_ys_multi",
+                                    "features8_sweep_multi"}
+    # every C entry the wrappers launch has a declared signature; the tiled
+    # normalized convolution counts its launches of ife_normalized_conv
+    assert {f"ife_{k}" for k in _build.LAUNCHES
+            if k != "normalized_conv_tiled"} == set(_build._SIGNATURES)
 
 
 def test_build_runs_the_compiles_together_and_reports_a_failure():
@@ -235,3 +241,35 @@ def test_build_runs_the_compiles_together_and_reports_a_failure():
     with pytest.raises(RuntimeError, match="nvcc failed"):
         _build._run_all([[sys.executable, "-c", "print(1)"],
                          [sys.executable, "-c", "import sys; sys.exit(3)"]])
+
+
+def test_declared_signatures_match_the_c_entries():
+    # the CPU tests run without nvcc: hold each ctypes signature against the
+    # parameter list of its extern "C" entry in csrc (pointer -> void* or
+    # float*, long long -> int64, float -> float)
+    import ctypes
+    import re
+
+    text = "".join(p.read_text() for p in _build._sources()[0])
+    entries = dict(re.findall(r'extern "C" int (ife_\w+)\(([^)]*)\)', text))
+    assert set(entries) == set(_build._SIGNATURES)
+    for name, params in entries.items():
+        kinds = []
+        for prm in params.split(","):
+            prm = " ".join(prm.split())
+            if "*" in prm or prm.startswith("cudaStream_t"):
+                kinds.append("p")
+            elif prm.startswith("long long"):
+                kinds.append("i")
+            else:
+                assert prm.startswith("float "), (name, prm)
+                kinds.append("f")
+        want = []
+        for t in _build._SIGNATURES[name]:
+            if t is ctypes.c_int64:
+                want.append("i")
+            elif t is ctypes.c_float:
+                want.append("f")
+            else:
+                want.append("p")
+        assert kinds == want, name
