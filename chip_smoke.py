@@ -2,9 +2,15 @@
 """Smoke test of ife_tpu_torch on one NVIDIA Hopper GPU (sm_90a).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ranks 4     # the sharded path, one rank per card
 
 Run from the root of a checkout; needs one CUDA device of compute
-capability 9.0, nvcc and nvidia-smi. Phases, one line (or a few) each; any
+capability 9.0, nvcc and nvidia-smi (`--ranks N`: N of them on one host, and
+runs that phase alone: N processes under torch.distributed / NCCL, one block
+per rank on a 1D and a 2D mesh, sharded_features8 per sigma,
+sharded_hessian_eig and a fine histogram at 512^3, each rank holding the
+gathered result against its own single-device pass, with the slowest rank's
+time per pass). Phases, one line (or a few) each; any
 failing phase exits non-zero:
 
   1. device   torch/CUDA/nvcc versions, the card's name and power limit;
@@ -20,8 +26,14 @@ failing phase exits non-zero:
               a thin volume whose y radius exceeds Y; the histogram
               kernel over the features8 channels, whole-volume and box
               forms, E 1/31/4096, weighted and not, with NaN, +-inf and
-              duplicate edges, once on its global-memory path;
-  4. main     three paths of user entry points, the launch counters reset
+              duplicate edges, once on its global-memory path; the windowed
+              kernels features8_tap and features8_xs (also on a thin volume),
+              and every shard mode against its twin in that mode: clamps of
+              the two sweeps (the default clamps also against the call
+              without), x_halo and pre_padded of the Hessian and post
+              kernels (an edge-replicated halo also against the whole-volume
+              mode);
+  4. main     four paths of user entry points, the launch counters reset
               before each and read after it. Features: the CLI
               (extract-features -s 0.6 2.4, hessian-features --fused) on a
               256x256x128 NIfTI, outputs checked against the plain f64 ops,
@@ -39,7 +51,19 @@ failing phase exits non-zero:
               pass; sigma 4.8 once more through the tiled normalized
               convolution and the windowed post kernel. Every kernel must
               have launched, features8_ys_multi exactly once per
-              multiscale_features8_fused call;
+              multiscale_features8_fused call. Sharded: on the 256x256x128
+              pair the CLI extract-features / make-bag / determine-bin-edges
+              --sharded --blocks 4 against the unsharded files; at 512^3 on
+              cuda:0 a 4-block 1D mesh and a 2 x 2 mesh in one process:
+              sharded_features8 per sigma (sweep + clamps at 0.6 / 1.2, the
+              normalized convolution of the extended block + post with
+              x_halo / pre_padded at 2.4 / 4.8), sharded_hessian_eig,
+              sharded_feature_fine_histograms and make_bag_sharded, each
+              against the single-device port with the mode kernels' launch
+              counts asserted; the same once more under torch.distributed
+              (NCCL, world size 1); then the direct entries
+              fused_features8_tap / _xs, fused_features8_sweep_multi with
+              clamps and fused_features8_post pre_padded;
   5. full     512^3 f32: kernel and plain times (CUDA events, median of 5
               with spread) and kernel-vs-plain checks per kernel and sigma,
               the features8 pass per sigma, the multi-scale kernels beside
@@ -49,10 +73,13 @@ failing phase exits non-zero:
               the histogram kernel at the bench.py config-4 shape (8
               channels, 31 edges, mask weights: the sphere, and bench.py's
               random 75% mask), at 4096 edges, and on 50 ROIs of 41^3 per
-              sigma beside the feature pass;
+              sigma beside the feature pass; tap and xs beside the sweep;
+              every shard mode beside its whole-volume mode; the 4-block
+              and 2 x 2 sharded pass beside the single-device pass;
   6. profile  device time per CUDA kernel launch of one features8 pass per
               sigma, one Hessian+eig pass, one config-4 histogram, one
-              multiscale_features8_fused pass and one sweep_multi pass
+              multiscale_features8_fused pass, one sweep_multi pass and one
+              4-block sharded features8 pass at sigma 1.2 and 4.8
               (torch.profiler, 3 calls each).
 
 Kernel vs plain twin: the kernels are built without FMA contraction and
@@ -63,7 +90,12 @@ channels as value-sorted triples and the normalized convolution inside the
 mask, is printed beside it. The CLI outputs are held against the plain f64
 ops within 1e-4 of that measure, the scales of the multi-scale stack within
 1e-4 or twice the distance of the per-scale f32 pass from them (the f32
-floor of a wide sigma's second differences). The line before the last is
+floor of a wide sigma's second differences). The sharded results equal the
+single-device port to the bit wherever both run the same kernel arithmetic
+(every sigma but 2.4, where the single-device dispatcher takes the xs-stream
+branch, y-z-x, and the sharded route the normalized convolution, x-y-z: there
+the sharded pass equals the single-device normalized convolution + post to
+the bit and the dispatcher's pass within SHARD_TOL). The line before the last is
 {"kernels": [...]}: per kernel its launches on the main paths, its time, its
 plain twin's time and its bound at 512^3. The bound is the larger of the
 bytes the function must move (each input read once, each output written
@@ -119,6 +151,25 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                            "ife_tpu/kernels/fused.py:1634"),
     "features8_sweep_multi": ("ife_tpu_torch/csrc/features8_sweep.cu",
                               "ife_tpu/kernels/fused.py:2055"),
+    "features8_tap": ("ife_tpu_torch/csrc/features8_tap.cu",
+                      "ife_tpu/kernels/fused.py:2268"),
+    "features8_xs": ("ife_tpu_torch/csrc/features8_tap.cu",
+                     "ife_tpu/kernels/fused.py:2395"),
+    # the shard modes, counted apart from their kernels' whole-volume mode
+    "features8_sweep_clamps": ("ife_tpu_torch/csrc/features8_sweep.cu",
+                               "ife_tpu/kernels/fused.py:2169"),
+    "features8_sweep_multi_clamps": ("ife_tpu_torch/csrc/features8_sweep.cu",
+                                     "ife_tpu/kernels/fused.py:2064"),
+    "hessian_eig_x_halo": ("ife_tpu_torch/csrc/hessian_eig.cu",
+                           "ife_tpu/kernels/fused.py:1467"),
+    "hessian_eig_pre_padded": ("ife_tpu_torch/csrc/hessian_eig.cu",
+                               "ife_tpu/kernels/fused.py:1368"),
+    "features8_post_x_halo": ("ife_tpu_torch/csrc/features8_post.cu",
+                              "ife_tpu/kernels/fused.py:1958"),
+    "features8_post_pre_padded": ("ife_tpu_torch/csrc/features8_post.cu",
+                                  "ife_tpu/kernels/fused.py:1957"),
+    "features8_post_windowed_pre_padded": (
+        "ife_tpu_torch/csrc/features8_post.cu", "ife_tpu/kernels/fused.py:1872"),
 }
 # the kernels each main path must launch
 FEATURE_PATH = ("hessian_eig", "normalized_conv", "features8_post",
@@ -126,12 +177,26 @@ FEATURE_PATH = ("hessian_eig", "normalized_conv", "features8_post",
 BAG_PATH = ("features8_sweep", "features8_xs_stream", "smooth_yz", "histogram")
 MULTISCALE_PATH = ("smooth_xz", "features8_ys_multi", "features8_sweep_multi",
                    "normalized_conv_tiled", "features8_post_windowed")
+SHARDED_PATH = ("features8_sweep_clamps", "normalized_conv",
+                "features8_post_x_halo", "features8_post_pre_padded",
+                "hessian_eig_x_halo", "hessian_eig_pre_padded", "histogram",
+                "features8_tap", "features8_xs", "smooth_yz",
+                "features8_sweep_multi_clamps",
+                "features8_post_windowed_pre_padded")
+# sharded against single-device where the two take different passes (sigma
+# 2.4): two f32 passes of one function, each within TOL of the f64 ops
+SHARD_TOL = 2e-4
+# tap (x-y-z) against the sweep (y-z-x) at 512^3: as above, with the sorted
+# eigenvalues' sqrt(ulp) floor near repeated eigenvalues on top
+TAP_TOL = 4e-4
 # the sigma whose 512^3 times stand in the {"kernels": ...} line: one the
 # dispatcher (or the multi-scale path) sends to the kernel at 0.78 mm
 REPORT_SIGMA = {"normalized_conv": 4.8, "features8_post": 4.8,
                 "features8_sweep": 1.2, "features8_xs_stream": 2.4,
                 "smooth_yz": 2.4, "smooth_xz": 4.8,
-                "normalized_conv_tiled": 4.8, "features8_post_windowed": 4.8}
+                "normalized_conv_tiled": 4.8, "features8_post_windowed": 4.8,
+                "features8_tap": 1.2, "features8_xs": 1.2,
+                "features8_sweep_clamps": 1.2}
 # the sigmas at which phase 5 runs the kernels of this table (every sigma
 # for the others): the twins at 512^3 are slow
 FULL_SIGMAS = {"smooth_xz": (2.4, 4.8), "normalized_conv_tiled": (4.8,),
@@ -389,6 +454,107 @@ def multi_kernel_checks(img, mask, sp, errs):
     return line
 
 
+def edge_layer(v):
+    """v with a one-voxel edge-replicated layer on x and y (what a block
+    with no neighbour carries in pre_padded mode)."""
+    from ife_tpu_torch.parallel import halo_pad
+
+    return halo_pad(halo_pad(v, 0, 1), 1, 1).contiguous()
+
+
+def mode_pairs(img, mask, sigma, sp):
+    """(name, kernel call, plain twin call) for the windowed kernels and
+    every shard mode: clamps that put a true face inside the array on one
+    side of each axis and none on the other; x_halo rows and a pre_padded
+    layer that replicate the faces."""
+    from ife_tpu_torch import kernels as K
+
+    X, Y, _ = img.shape
+    cl = [min(2, X - 1), K.NO_FACE, -K.NO_FACE, max(Y - 3, 0)]
+    s = torch.nan_to_num(K.normalized_conv_plain(img, mask, sigma, sp))
+    halo = (s[:1].contiguous(), s[-1:].contiguous())
+    ihalo = (img[:1].contiguous(), img[-1:].contiguous())
+    s_pad, img_pad = edge_layer(s), edge_layer(img)
+    pairs = [
+        ("features8_sweep_clamps",
+         lambda: K.fused_features8_sweep(img, mask, sigma, sp, stack=False,
+                                         clamps=cl),
+         lambda: K.features8_sweep_plain(img, mask, sigma, sp, clamps=cl)),
+        ("hessian_eig_x_halo",
+         lambda: K.fused_hessian_eig_stream(img, sp, stack=False, x_halo=ihalo),
+         lambda: K.hessian_eig_plain(img, sp, x_halo=ihalo)),
+        ("hessian_eig_pre_padded",
+         lambda: K.fused_hessian_eig(img_pad, sp, stack=False, pre_padded=True),
+         lambda: K.hessian_eig_plain(img_pad, sp, pre_padded=True)),
+        ("features8_post_x_halo",
+         lambda: K.fused_features8_post_stream(s, mask, sp, stack=False,
+                                               x_halo=halo),
+         lambda: K.features8_post_plain(s, mask, sp, x_halo=halo)),
+        ("features8_post_pre_padded",
+         lambda: K.fused_features8_post_stream(s_pad, mask, sp, stack=False,
+                                               pre_padded=True),
+         lambda: K.features8_post_plain(s_pad, mask, sp, pre_padded=True)),
+        ("features8_post_windowed_pre_padded",
+         lambda: K.fused_features8_post(s_pad, mask, sp, stack=False,
+                                        pre_padded=True),
+         lambda: K.features8_post_plain(s_pad, mask, sp, pre_padded=True)),
+    ]
+    if K.tap_fits(sigma, sp):
+        pairs.append(("features8_tap",
+                      lambda: K.fused_features8_tap(img, mask, sigma, sp,
+                                                    stack=False),
+                      lambda: K.features8_tap_plain(img, mask, sigma, sp)))
+    if K.xs_fits(sigma, sp):
+        pairs.append(("features8_xs",
+                      lambda: K.fused_features8_xs(img, mask, sigma, sp,
+                                                   stack=False),
+                      lambda: K.features8_xs_plain(img, mask, sigma, sp)))
+    return pairs
+
+
+def mode_kernel_checks(img, mask, sp, errs, sigma=1.2):
+    """tap, xs and every shard mode against its twin in that mode; the
+    default clamps against the call without; an edge-replicated halo
+    against the whole-volume mode."""
+    from ife_tpu_torch import kernels as K
+
+    X, Y, _ = img.shape
+    for name, kern, plain in mode_pairs(img, mask, sigma, sp):
+        rel, _ = kernel_check(f"{name} {tuple(img.shape)} {sp}", kern(), plain())
+        errs[name].append(rel)
+    labels = mask * 3.0  # the sweeps clamp the mask themselves
+    sigmas = (0.6, sigma)
+    cl = [min(2, X - 1), K.NO_FACE, -K.NO_FACE, max(Y - 3, 0)]
+    rel, _ = multi_check(
+        "features8_sweep_multi_clamps",
+        K.fused_features8_sweep_multi(img, labels, sigmas, sp, stack=False,
+                                      clamps=cl),
+        K.features8_sweep_multi_plain(img, labels, sigmas, sp, clamps=cl))
+    errs["features8_sweep_multi_clamps"].append(rel)
+    whole = [0, X - 1, 0, Y - 1]
+    same = [
+        ("sweep default clamps",
+         K.fused_features8_sweep(img, labels, sigma, sp, clamps=whole),
+         K.fused_features8_sweep(img, labels, sigma, sp)),
+        ("sweep_multi default clamps",
+         K.fused_features8_sweep_multi(img, labels, sigmas, sp, clamps=whole),
+         K.fused_features8_sweep_multi(img, labels, sigmas, sp)),
+        ("hessian x_halo of the face rows",
+         K.fused_hessian_eig_stream(img, sp, x_halo=(img[:1].contiguous(),
+                                                     img[-1:].contiguous())),
+         K.fused_hessian_eig_stream(img, sp)),
+        ("hessian pre_padded edge layer",
+         K.fused_hessian_eig(edge_layer(img), sp, pre_padded=True),
+         K.fused_hessian_eig(img, sp)),
+    ]
+    for label, got, want in same:
+        if not bit_equal(got.unbind(0), want.unbind(0)):
+            raise PhaseError(f"{label}: differs from the whole-volume call")
+    return ("tap, xs, clamps (single, multi), x_halo and pre_padded (hessian, "
+            "post, windowed post); default clamps and face-row halos == the "
+            "whole-volume mode")
+
+
 def phase_kernels(errs):
     from ife_tpu_torch import kernels as K
 
@@ -410,6 +576,7 @@ def phase_kernels(errs):
                     part.append(f"{name} {rel:.1e}")
                 line.append(f"s={sigma}: " + " ".join(part))
             line += multi_kernel_checks(img, mask, sp, errs)
+            line.append(mode_kernel_checks(img, mask, sp, errs))
             torch.cuda.synchronize()
             say("kernels", f"{shape} spacing {sp}, bit-equal to the twins: "
                 + "; ".join(line))
@@ -423,6 +590,14 @@ def phase_kernels(errs):
     torch.cuda.synchronize()
     say("kernels", "(40, 9, 33) features8_ys_multi, y radii 14 and 28 > Y: "
         f"bit-equal to the twin, rel {rel:.1e}")
+    # thin in y and thin in x: every window of tap and xs is all boundary
+    for shape in ((40, 9, 33), (5, 40, 33)):
+        img, mask = _inputs(shape, 0, dev)
+        for sigma in (0.6, 1.2):
+            mode_kernel_checks(img, mask, SPACINGS[0], errs, sigma)
+        torch.cuda.synchronize()
+        say("kernels", f"{shape} tap, xs and the shard modes at sigma 0.6 and "
+            "1.2: bit-equal to the twins")
 
 
 def hist_edges(chans, E):
@@ -817,6 +992,278 @@ def phase_multiscale(big_img, big_mask):
     return launches
 
 
+def _expect_launches(label, want):
+    """Raise unless the launch counters hold exactly `want` (every other
+    counter 0): a route that silently took another kernel, or a plain twin,
+    fails here."""
+    from ife_tpu_torch.kernels import LAUNCHES
+
+    got = {k: v for k, v in LAUNCHES.items() if v}
+    if got != want:
+        raise PhaseError(f"{label}: launches {got}, expected {want}")
+
+
+def _gathered(chans):
+    from ife_tpu_torch.parallel import gather_volume
+
+    return [gather_volume(c) for c in chans]
+
+
+def sharded_feature_checks(img, mask, mesh, label, singles):
+    """sharded_features8 per sigma and sharded_hessian_eig on `mesh` against
+    the single-device results `singles`, with the mode kernels' launch
+    counts; returns the launches made."""
+    from ife_tpu_torch import kernels as K
+    from ife_tpu_torch import parallel as P
+    from ife_tpu_torch.ops.features import features8_dispatch_branch
+
+    n = mesh.n_blocks
+    one_d = len([d for d in mesh.dims if d > 1]) <= 1
+    post = "features8_post_x_halo" if one_d else "features8_post_pre_padded"
+    hess = "hessian_eig_x_halo" if one_d else "hessian_eig_pre_padded"
+    xi, mi = P.shard_volume(img, mesh), P.shard_volume(mask, mesh)
+    total = dict.fromkeys(K.LAUNCHES, 0)
+    line = []
+    for sigma in SIGMAS:
+        K.reset_launches()
+        got = _gathered(P.sharded_features8(xi, mi, sigma, mesh, FULL_SPACING,
+                                            stack=False))
+        sweep = features8_dispatch_branch(sigma, FULL_SPACING, None) == "sweep"
+        _expect_launches(f"sharded_features8 {label} s={sigma}",
+                         {"features8_sweep_clamps": n} if sweep
+                         else {"normalized_conv": n, post: n})
+        for k, v in K.LAUNCHES.items():
+            total[k] += v
+        exact, near = singles[sigma]
+        if not bit_equal(got, exact):
+            raise PhaseError(f"sharded_features8 {label} s={sigma}: differs "
+                             "from the single-device kernels")
+        rel, _ = feature_errors(got, near, (2, 3, 4))
+        line.append(f"s={sigma} {'sweep+clamps' if sweep else 'nc+' + post[15:]}"
+                    f" bit-equal" + ("" if near is exact else
+                                     f" (dispatcher's pass: {rel:.2e})"))
+        if rel > SHARD_TOL:
+            raise PhaseError(f"sharded_features8 {label} s={sigma}: {rel:.2e} "
+                             "from the single-device dispatcher's pass")
+        del got
+    K.reset_launches()
+    got = _gathered(P.sharded_hessian_eig(xi, mesh, FULL_SPACING, stack=False))
+    _expect_launches(f"sharded_hessian_eig {label}", {hess: n})
+    total[hess] += n
+    if not bit_equal(got, singles["hessian"]):
+        raise PhaseError(f"sharded_hessian_eig {label}: differs from the "
+                         "single-device kernel")
+    line.append(f"hessian ({hess[12:]}) bit-equal")
+    say("sharded", f"{label}, {n} blocks {mesh.dims} on {mesh.device}, 512^3 "
+        "against the single-device port: " + "; ".join(line))
+    return total
+
+
+def sharded_stats_checks(img_np, mask_np, meshes, edges, rois):
+    """sharded_feature_fine_histograms and make_bag_sharded on every mesh
+    against the one-block mesh / make_bag_device: counts and bags equal."""
+    import numpy as np
+
+    from ife_tpu_torch import kernels as K
+    from ife_tpu_torch import parallel as P
+    from ife_tpu_torch.roi.bag import make_bag_device, make_bag_sharded
+
+    one = P.make_mesh(1, ("x",))
+    want_h = P.sharded_feature_fine_histograms(img_np, mask_np, (1.2, 4.8), one,
+                                               FULL_SPACING, n_fine=4096)
+    want_b = make_bag_device(img_np, mask_np, (1.2,), edges, rois, FULL_SPACING)
+    total = dict.fromkeys(K.LAUNCHES, 0)
+    for label, mesh in meshes:
+        K.reset_launches()
+        got_h = P.sharded_feature_fine_histograms(
+            img_np, mask_np, (1.2, 4.8), mesh, FULL_SPACING, n_fine=4096)
+        for (gb, gc), (wb, wc) in zip(got_h, want_h):
+            if not (np.array_equal(gb, wb) and np.array_equal(gc, wc)):
+                raise PhaseError(f"fine histograms {label}: differ from the "
+                                 "one-block mesh")
+        got_b = make_bag_sharded(img_np, mask_np, (1.2,), edges, rois, mesh,
+                                 FULL_SPACING)
+        if not np.array_equal(got_b, want_b):
+            raise PhaseError(f"make_bag_sharded {label}: differs from "
+                             f"make_bag_device by {np.abs(got_b - want_b).max()}")
+        if K.LAUNCHES["features8_sweep_clamps"] != 2 * mesh.n_blocks:
+            raise PhaseError(f"stats {label}: launches {dict(K.LAUNCHES)}")
+        for k, v in K.LAUNCHES.items():
+            total[k] += v
+        say("sharded", f"{label}: 16 fine histograms of 4096 bins (sigma 1.2, "
+            f"4.8; {int(want_h[0][1].sum())} voxels each) equal to the "
+            f"one-block mesh; make_bag_sharded {got_b.shape} equal to "
+            "make_bag_device")
+    return total
+
+
+def phase_sharded_cli(tmp):
+    """The three --sharded routes on the 256x256x128 pair, 4 blocks in this
+    process, against the unsharded runs of phases main and bags (their
+    files are in tmp). Returns the launches."""
+    import numpy as np
+
+    from ife_tpu_torch.cli.main import main
+    from ife_tpu_torch.io import read_hist_spec, read_volume
+    from ife_tpu_torch.kernels import LAUNCHES, reset_launches
+    from ife_tpu_torch.ops.features import FEATURE_NAMES
+
+    path = lambda name: os.path.join(tmp, name)  # noqa: E731
+    shard = ["--sharded", "--blocks", "4"]
+    runs = [["extract-features", "-i", path("img.nii.gz"), "-m",
+             path("mask.nii.gz"), "-o", path("sfeat"), "-s", "0.6", "2.4", *shard],
+            ["make-bag", "-i", path("img.nii.gz"), "-m", path("mask.nii.gz"),
+             "-b", path("spec.txt"), "-s", "0.6", "2.4", "-n", "50",
+             "--roi-size", "41,41,41", "--seed", "0", "-o", path("sbag"), *shard],
+            ["determine-bin-edges", "-l", path("pairs.txt"), "-o",
+             path("sspec.txt"), "-s", "0.6", "2.4", "--bins", "32", *shard]]
+    torch.cuda.synchronize()
+    reset_launches()
+    secs = []
+    for argv in runs:
+        t0 = time.perf_counter()
+        if main(argv) != 0:
+            raise PhaseError(f"CLI {argv[0]} --sharded exited non-zero")
+        torch.cuda.synchronize()
+        secs.append(f"{argv[0]} {time.perf_counter() - t0:.1f} s")
+    launches = dict(LAUNCHES)
+    say("sharded", "CLI --sharded --blocks 4: " + "; ".join(secs)
+        + f"; launches { {k: v for k, v in launches.items() if v} }")
+    worst = {}
+    for sigma in (0.6, 2.4):
+        got, want = ([read_volume(path(f"{pre}_scale_{sigma:g}{n}.nii.gz")
+                                  ).data.cuda() for n in FEATURE_NAMES]
+                     for pre in ("sfeat", "feat"))
+        if sigma == 0.6 and not bit_equal(got, want):
+            raise PhaseError("extract-features --sharded s=0.6: files differ "
+                             "from the unsharded run's")
+        worst[sigma] = feature_errors(got, want, (2, 3, 4))[0]
+        if worst[sigma] > SHARD_TOL:
+            raise PhaseError(f"extract-features --sharded s={sigma}: "
+                             f"{worst[sigma]:.2e} from the unsharded files")
+    bag, dev = (np.loadtxt(path(f"{n}.bag"), delimiter=",")
+                for n in ("sbag", "dev"))
+    half = bag.shape[1] // 2  # the columns of sigma 0.6
+    d06 = float(np.abs(bag[:, :half] - dev[:, :half]).max())
+    d24 = float(np.abs(bag[:, half:] - dev[:, half:]).max())
+    # sigma 0.6: the same features, the same counts. sigma 2.4: features
+    # within SHARD_TOL move a few of a box's 41^3 voxels across an edge
+    if bag.shape != dev.shape or d06 > 5.01e-6 or d24 > 5e-3:
+        raise PhaseError(f"make-bag --sharded: {d06:.3g} / {d24:.3g} from "
+                         "make-bag --device")
+    # the scalable edges invert a 4096-bin CDF over [min, max]: within a fine
+    # bin of the exact, sort-based edges, a small share (<= 0.1) of the span
+    # between a row's first and last edge even for a heavy-tailed channel
+    spec, fine = read_hist_spec(path("spec.txt")), read_hist_spec(path("sspec.txt"))
+    off = max(float(np.abs(f - s).max() / max(s[-1] - s[0], 1e-30))
+              for f, s in zip(fine, spec))
+    if len(fine) != 16 or any((np.diff(f) < 0).any() for f in fine) or off > 0.1:
+        raise PhaseError(f"determine-bin-edges --sharded: edges {off:.3g} of "
+                         "a row's span from the exact ones")
+    say("sharded", "CLI files against the unsharded runs: extract-features "
+        f"s=0.6 equal to the bit, s=2.4 within {worst[2.4]:.2e}; bag columns "
+        f"within {d06:.3g} (s=0.6) / {d24:.3g} (s=2.4) of make-bag --device; "
+        f"CDF edges within {off:.3g} of a row's span of the sorted ones")
+    return launches
+
+
+def phase_sharded(img, mask):
+    """The sharded path at 512^3 on cuda:0, counters reset before each step
+    and read after it; returns the launches added up."""
+    import socket
+
+    from ife_tpu_torch import kernels as K
+    from ife_tpu_torch import parallel as P
+    from ife_tpu_torch.ops.features import features8_auto_channels
+    from ife_tpu_torch.roi import generate_random_rois
+
+    sp = FULL_SPACING
+    # the single-device results: per sigma (what the sharded pass must equal
+    # to the bit, the dispatcher's pass). They differ at sigma 2.4 only.
+    singles = {}
+    mf = mask.clamp(0, 1)
+    for sigma in SIGMAS:
+        disp = features8_auto_channels(img, mask, sigma, sp)
+        if sigma == 2.4:
+            staged = K.fused_features8_post_stream(
+                K.fused_normalized_conv_sweep(img, mf, sigma, sp), mf, sp,
+                stack=False)
+            singles[sigma] = (staged, disp)
+        else:
+            singles[sigma] = (disp, disp)
+    singles["hessian"] = K.fused_hessian_eig_stream(img, sp, stack=False)
+    total = dict.fromkeys(K.LAUNCHES, 0)
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    meshes = [("1D", P.make_mesh(4, ("x",))), ("2D", P.make_mesh(4, ("x", "y")))]
+    for label, mesh in meshes:
+        add(sharded_feature_checks(img, mask, mesh, label, singles))
+    img_np, mask_np = img.cpu().numpy(), mask.cpu().numpy().astype("uint8")
+    edges = list(hist_edges(singles[1.2][0], 31).numpy())
+    rois = generate_random_rois(mask_np, 50, (41, 41, 41), seed=0)
+    add(sharded_stats_checks(img_np, mask_np, meshes, edges, rois))
+
+    # once more as rank 0 of a torch.distributed world of one process: the
+    # launcher, NCCL's init and the collectives (all_reduce of the counts,
+    # min / max of the ranges) run on the card
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    rank, world = P.distributed_init(f"127.0.0.1:{port}", 1, 0)
+    try:
+        import torch.distributed as dist
+
+        mesh = P.make_mesh(4, ("x", "y"))
+        if (rank, world, mesh.world_size, dist.get_backend()) != (0, 1, 1, "nccl"):
+            raise PhaseError("distributed_init: not rank 0 of 1 on NCCL")
+        add(sharded_feature_checks(img, mask, mesh, "2D under NCCL", singles))
+        add(sharded_stats_checks(img_np, mask_np, [("2D under NCCL", mesh)],
+                                 edges, rois))
+    finally:
+        P.distributed_shutdown()
+    del singles
+    torch.cuda.empty_cache()
+
+    # the direct entries nothing dispatches
+    K.reset_launches()
+    X, Y, _ = img.shape
+    outs = [K.fused_features8_tap(img, mask, 1.2, sp),
+            K.fused_features8_xs(img, mask, 1.2, sp)]
+    for o in outs:
+        if tuple(o.shape) != (8,) + FULL or not bool(torch.isfinite(o).all()):
+            raise PhaseError("tap / xs at 512^3: output not finite or not "
+                             f"{(8,) + FULL}")
+    sweep = K.fused_features8_sweep(img, mask, 1.2, sp)
+    rel_tap, _ = feature_errors(outs[0].unbind(0), sweep.unbind(0), (2, 3, 4))
+    if not bit_equal(outs[1].unbind(0), sweep.unbind(0)) or rel_tap > TAP_TOL:
+        raise PhaseError("xs differs from the sweep (the same passes), or tap "
+                         f"is {rel_tap:.2e} from it")
+    del outs
+    multi = K.fused_features8_sweep_multi(img, mask, SWEEP_SIGMAS, sp,
+                                          clamps=[0, X - 1, 0, Y - 1])
+    if not bit_equal(multi[1].unbind(0), sweep.unbind(0)):
+        raise PhaseError("sweep_multi with the array's faces as clamps differs "
+                         "from the sweep")
+    del multi, sweep
+    s = K.fused_normalized_conv_sweep(img, mf, 4.8, sp)
+    if not bit_equal(K.fused_features8_post(edge_layer(s), mf, sp,
+                                            pre_padded=True).unbind(0),
+                     K.fused_features8_post_stream(s, mf, sp).unbind(0)):
+        raise PhaseError("windowed post pre_padded on an edge layer differs "
+                         "from the whole-volume post")
+    torch.cuda.synchronize()
+    say("sharded", f"direct entries at 512^3: xs == sweep to the bit, tap "
+        f"{rel_tap:.2e} from it (x-y-z against y-z-x), sweep_multi with clamps "
+        f"and windowed post pre_padded == their whole-volume forms; launches "
+        f"{ {k: v for k, v in K.LAUNCHES.items() if v} }")
+    add(K.LAUNCHES)
+    torch.cuda.empty_cache()
+    return total
+
+
 def timed(label, fn):
     med, lo, hi = cuda_ms(fn)
     say("full", f"{label}: {med:.3f} ms (min {lo:.3f}, max {hi:.3f})")
@@ -961,6 +1408,95 @@ def phase_full_multi(img, mask, errs, results):
     print(card_line(), flush=True)
 
 
+def phase_full_modes(img, mask, errs, results):
+    """tap and xs beside the sweep, every shard mode beside its whole-volume
+    mode, and the sharded pass beside the single-device pass, at 512^3."""
+    from ife_tpu_torch import kernels as K
+    from ife_tpu_torch import parallel as P
+    from ife_tpu_torch.ops.features import features8_auto_channels
+
+    sp = FULL_SPACING
+    base = {"features8_sweep_clamps": "features8_sweep",
+            "hessian_eig_x_halo": "hessian_eig",
+            "hessian_eig_pre_padded": "hessian_eig",
+            "features8_post_x_halo": "features8_post",
+            "features8_post_pre_padded": "features8_post",
+            "features8_post_windowed_pre_padded": "features8_post_windowed"}
+    for sigma in SWEEP_SIGMAS:
+        sw = timed(f"s={sigma} features8_sweep kernel",
+                   lambda: K.fused_features8_sweep(img, mask, sigma, sp))
+        yz = timed(f"s={sigma} smooth_yz kernel (ahead of the xs kernel)",
+                   lambda: K.fused_smooth_yz(img, mask, sigma, sp))
+        for name, kern, plain in mode_pairs(img, mask, sigma, sp):
+            if name not in ("features8_tap", "features8_xs"):
+                continue
+            km = timed(f"s={sigma} {name} kernel", kern)
+            pm = timed(f"s={sigma} {name} plain", plain)
+            rel, ab = kernel_check(f"{name} 512^3 s={sigma}", kern(), plain())
+            errs[name].append(rel)
+            say("full", f"s={sigma} {name}: bit-equal to plain, rel {rel:.2e}; "
+                f"{km:.3f} ms against the sweep's {sw:.3f}"
+                + (f" (of it {yz:.3f} ms in smooth_yz)" if name == "features8_xs"
+                   else ""))
+            if REPORT_SIGMA[name] == sigma:
+                results[name] = dict(ms=km, plain_ms=pm, max_abs_err=ab)
+            torch.cuda.empty_cache()
+    sigma = REPORT_SIGMA["features8_sweep_clamps"]
+    for name, kern, plain in mode_pairs(img, mask, sigma, sp):
+        if name in ("features8_tap", "features8_xs"):
+            continue
+        km = timed(f"{name} kernel", kern)
+        pm = timed(f"{name} plain", plain)
+        rel, ab = kernel_check(f"{name} 512^3", kern(), plain())
+        errs[name].append(rel)
+        results[name] = dict(ms=km, plain_ms=pm, max_abs_err=ab)
+        say("full", f"{name}: bit-equal to plain, rel {rel:.2e}; {km:.3f} ms "
+            f"against {results[base[name]]['ms']:.3f} ms of {base[name]} "
+            f"(s={REPORT_SIGMA.get(base[name], '-')})")
+        torch.cuda.empty_cache()
+    X, Y, _ = img.shape
+    cl = [2, K.NO_FACE, -K.NO_FACE, Y - 3]
+    km = timed(f"features8_sweep_multi kernel with clamps, S=2 {SWEEP_SIGMAS}",
+               lambda: K.fused_features8_sweep_multi(img, mask, SWEEP_SIGMAS, sp,
+                                                     clamps=cl))
+    pm = timed("features8_sweep_multi plain with clamps, S=2",
+               lambda: K.features8_sweep_multi_plain(img, mask, SWEEP_SIGMAS, sp,
+                                                     clamps=cl))
+    rel, ab = multi_check(
+        "features8_sweep_multi_clamps 512^3",
+        K.fused_features8_sweep_multi(img, mask, SWEEP_SIGMAS, sp, stack=False,
+                                      clamps=cl),
+        K.features8_sweep_multi_plain(img, mask, SWEEP_SIGMAS, sp, clamps=cl))
+    errs["features8_sweep_multi_clamps"].append(rel)
+    results["features8_sweep_multi_clamps"] = dict(ms=km, plain_ms=pm,
+                                                   max_abs_err=ab)
+    say("full", f"features8_sweep_multi_clamps: bit-equal to plain, rel "
+        f"{rel:.2e}; {km:.3f} ms against "
+        f"{results['features8_sweep_multi']['ms']:.3f} ms without clamps")
+    torch.cuda.empty_cache()
+
+    for label, axes in (("4 blocks on x", ("x",)), ("2 x 2 blocks", ("x", "y"))):
+        mesh = P.make_mesh(4, axes)
+        xi, mi = P.shard_volume(img, mesh), P.shard_volume(mask, mesh)
+        for sigma in SIGMAS:
+            one = timed(f"s={sigma} features8 pass, single device",
+                        lambda: features8_auto_channels(img, mask, sigma, sp))
+            blk = timed(f"s={sigma} sharded_features8, {label}, one process",
+                        lambda: P.sharded_features8(xi, mi, sigma, mesh, sp,
+                                                    stack=False))
+            say("full", f"s={sigma} sharded_features8 {label}: {blk:.3f} ms "
+                f"against {one:.3f} ms single-device ({blk / one:.2f}x)")
+        one = timed("hessian_eig, single device",
+                    lambda: K.fused_hessian_eig_stream(img, sp, stack=False))
+        blk = timed(f"sharded_hessian_eig, {label}",
+                    lambda: P.sharded_hessian_eig(xi, mesh, sp, stack=False))
+        say("full", f"sharded_hessian_eig {label}: {blk:.3f} ms against "
+            f"{one:.3f} ms single-device ({blk / one:.2f}x)")
+        del xi, mi
+        torch.cuda.empty_cache()
+    print(card_line(), flush=True)
+
+
 def fir_ops(sigma, axes):
     """Multiplies and adds per voxel of the Gaussian passes along `axes`
     over numerator and denominator at FULL_SPACING."""
@@ -999,6 +1535,22 @@ def kernel_bounds(nvox, hist_work):
             sum(fir_ops(s, (0, 1, 2)) + 2 + TAIL_OPS
                 for s in SWEEP_SIGMAS) * nvox),
     }
+    # tap and the whole xs entry (y/z passes + its kernel) compute the
+    # sweep's function: image and mask in, 8 channels out. A shard mode moves
+    # its whole-volume mode's bytes, plus two halo rows or a one-voxel layer.
+    X, Y, Z = FULL
+    rows, layer = 2 * 4 * Y * Z, 4 * ((X + 2) * (Y + 2) - X * Y) * Z
+    for name in ("features8_tap", "features8_xs"):
+        work[name] = (10 * vol, (fir_ops(r[name], (0, 1, 2)) + 2 + TAIL_OPS)
+                      * nvox)
+    work["features8_sweep_clamps"] = work["features8_sweep"]
+    work["features8_sweep_multi_clamps"] = work["features8_sweep_multi"]
+    for name, extra in (("x_halo", rows), ("pre_padded", layer)):
+        for kern in ("hessian_eig", "features8_post"):
+            work[f"{kern}_{name}"] = (work[kern][0] + extra, work[kern][1])
+    work["features8_post_windowed_pre_padded"] = (
+        work["features8_post_windowed"][0] + layer,
+        work["features8_post_windowed"][1])
     out = {}
     for name, (nbytes, ops) in work.items():
         t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FLOPS * 1e3
@@ -1139,6 +1691,14 @@ def phase_profile(img, mask):
     passes.append((f"features8_sweep_multi {SWEEP_SIGMAS}",
                    lambda: fused_features8_sweep_multi(img, mask, SWEEP_SIGMAS,
                                                        FULL_SPACING)))
+    from ife_tpu_torch import parallel as P
+
+    mesh = P.make_mesh(4, ("x",))
+    xi, mi = P.shard_volume(img, mesh), P.shard_volume(mask, mesh)
+    passes += [(f"sharded_features8 4 blocks on x s={s}",
+                lambda s=s: P.sharded_features8(xi, mi, s, mesh, FULL_SPACING,
+                                                stack=False))
+               for s in (1.2, 4.8)]
     for label, fn in passes:
         fn()
         torch.cuda.synchronize()
@@ -1162,6 +1722,112 @@ def phase_profile(img, mask):
         torch.cuda.empty_cache()
 
 
+def rank_worker(rank, world, port):
+    """One rank of `python3 chip_smoke.py --ranks N`: one block per rank on
+    its own card. Every rank checks the gathered results against its own
+    single-device pass; rank 0 prints."""
+    import torch.distributed as dist
+
+    from ife_tpu_torch import kernels as K
+    from ife_tpu_torch import parallel as P
+    from ife_tpu_torch.ops.features import features8_auto_channels
+
+    P.distributed_init(f"127.0.0.1:{port}", world, rank)
+    dev = P.default_device()
+    if dev != torch.device("cuda", rank) or dist.get_backend() != "nccl":
+        raise PhaseError(f"rank {rank}: on {dev} with {dist.get_backend()}")
+    sp = FULL_SPACING
+    img, mask = (v.to(dev) for v in _inputs(FULL, 2, "cpu"))
+    mf = mask.clamp(0, 1)
+
+    def slowest(fn):
+        """ms of fn() on the slowest rank (median of 5 per rank)."""
+        dist.barrier()
+        ms = torch.tensor(cuda_ms(fn)[0], device=dev)
+        dist.all_reduce(ms, op=dist.ReduceOp.MAX)
+        return ms.item()
+
+    for axes in (("x",), ("x", "y")):
+        mesh = P.make_mesh(world, axes)
+        if len(mesh.local_blocks) != 1 or mesh.world_size != world:
+            raise PhaseError(f"rank {rank}: owns blocks {mesh.local_blocks}")
+        xi, mi = P.shard_volume(img, mesh), P.shard_volume(mask, mesh)
+        line = []
+        for sigma in SIGMAS:
+            got = _gathered(P.sharded_features8(xi, mi, sigma, mesh, sp,
+                                                stack=False))
+            want = features8_auto_channels(img, mask, sigma, sp)
+            if sigma == 2.4:  # the dispatcher takes the xs-stream branch
+                rel, _ = feature_errors(got, want, (2, 3, 4))
+                if rel > SHARD_TOL:
+                    raise PhaseError(f"rank {rank} s={sigma}: {rel:.2e} from "
+                                     "the single-device pass")
+                want = K.fused_features8_post_stream(
+                    K.fused_normalized_conv_sweep(img, mf, sigma, sp), mf, sp,
+                    stack=False)
+            if not bit_equal(got, want):
+                raise PhaseError(f"rank {rank}: sharded_features8 {mesh.dims} "
+                                 f"s={sigma} differs from the single device")
+            del got, want
+            one = cuda_ms(lambda: features8_auto_channels(img, mask, sigma, sp))[0]
+            blk = slowest(lambda: P.sharded_features8(xi, mi, sigma, mesh, sp,
+                                                      stack=False))
+            line.append(f"s={sigma} {blk:.3f} ms ({one:.3f} on one card)")
+        got = _gathered(P.sharded_hessian_eig(xi, mesh, sp, stack=False))
+        if not bit_equal(got, K.fused_hessian_eig_stream(img, sp, stack=False)):
+            raise PhaseError(f"rank {rank}: sharded_hessian_eig differs")
+        del got
+        blk = slowest(lambda: P.sharded_hessian_eig(xi, mesh, sp, stack=False))
+        one_mesh = P.BlockMesh((1,), ("x",), dev)  # this rank alone
+        bounds, counts = P.masked_fine_histogram(xi, mi, mesh, 4096)
+        wb, wc = P.masked_fine_histogram(
+            P.ShardedVolume(one_mesh, [img]), P.ShardedVolume(one_mesh, [mask]),
+            one_mesh, 4096)
+        # one_mesh's all_reduce sums the ranks' identical whole-volume counts
+        if not ((bounds == wb).all() and (counts * world == wc).all()):
+            raise PhaseError(f"rank {rank}: fine histogram differs")
+        if rank == 0:
+            say("ranks", f"{world} ranks over NCCL, one block each, mesh "
+                f"{mesh.dims}, 512^3, bit-equal to each rank's single-device "
+                f"pass (s=2.4: to nc + post); slowest rank: " + "; ".join(line)
+                + f"; hessian {blk:.3f} ms; fine histogram of "
+                f"{int(counts.sum())} voxels equal")
+    dist.barrier()
+    P.distributed_shutdown()
+    return 0
+
+
+def phase_ranks(world):
+    """`--ranks N`: build once, then N rank_worker processes."""
+    import socket
+
+    from ife_tpu_torch.kernels import _build
+
+    phase_device()
+    if torch.cuda.device_count() < world:
+        raise PhaseError(f"--ranks {world} needs {world} cards, found "
+                         f"{torch.cuda.device_count()}")
+    _build.build()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank-worker", str(r),
+         str(world), str(port)], stdout=subprocess.PIPE, text=True)
+        for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=900)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    print(outs[0], end="", flush=True)
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        raise PhaseError(f"ranks {bad} failed")
+    print(card_line(), flush=True)
+
+
 def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "ife_tpu_torch")):
@@ -1169,6 +1835,19 @@ def main() -> int:
               "(ife_tpu_torch/ not found beside it)", file=sys.stderr)
         return 2
     sys.path.insert(0, root)
+
+    if sys.argv[1:2] in (["--ranks"], ["--rank-worker"]):
+        try:
+            if sys.argv[1] == "--rank-worker":
+                return rank_worker(*(int(a) for a in sys.argv[2:5]))
+            phase_ranks(int(sys.argv[2]))
+        except PhaseError as e:
+            print(f"chip_smoke: phase ranks failed: {e}", file=sys.stderr)
+            return 1
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     phase = "device"
     try:
@@ -1183,14 +1862,23 @@ def main() -> int:
             launches, img, mask = phase_main(tmp)
             phase = "bags"
             bag_launches = phase_bags(tmp)
+            phase = "sharded"
+            cli_launches = phase_sharded_cli(tmp)
+        shard_launches = phase_sharded(img, mask)
+        shard_launches = {k: v + cli_launches[k]
+                          for k, v in shard_launches.items()}
+        missing = [k for k in SHARDED_PATH if shard_launches.get(k, 0) < 1]
+        if missing:
+            raise PhaseError(f"sharded path launched no {missing} kernel")
         phase = "multiscale"
         multi_launches = phase_multiscale(img, mask)
         launches = {k: launches[k] + bag_launches[k] + multi_launches[k]
-                    for k in launches}
+                    + shard_launches[k] for k in launches}
         phase = "full"
         results = {}
         phase_full(img, mask, errs, results)
         phase_full_multi(img, mask, errs, results)
+        phase_full_modes(img, mask, errs, results)
         hist_work = phase_full_hist(img, mask, errs, results)
         bounds = kernel_bounds(img.numel(), hist_work)
         phase = "profile"
@@ -1198,7 +1886,7 @@ def main() -> int:
     except PhaseError as e:
         print(f"chip_smoke: phase {phase} failed: {e}", file=sys.stderr)
         return 1
-    # launches: counted in phase 4 (the three paths' runs added); ms,
+    # launches: counted in phase 4 (the four paths' runs added); ms,
     # plain_ms and max_abs_err: measured at 512^3 (at REPORT_SIGMA for the
     # smoothing kernels, YS_SIGMAS / SWEEP_SIGMAS for the multi-scale ones,
     # the config-4 shape for the histogram); bound_ms: computed from the

@@ -3,8 +3,12 @@ ife_tpu/cli/commands.py): the feature subcommands, determine-bin-edges,
 make-bag and generate-rois.
 
 REGISTRY maps subcommand name -> (configure(parser), run(args), help). The
-compute runs on the first CUDA device when there is one, else on the CPU;
-volumes are read and written on the host.
+compute runs on the first CUDA device when there is one, else on the CPU
+(IFE_PLATFORM=cpu forces the CPU); volumes are read and written on the host.
+
+--sharded cuts the volume into a mesh of blocks (parallel/): --blocks of them
+in this process, or, with --coordinator / --num-processes / --process-id,
+dealt to the processes of torch.distributed, each on its own device.
 """
 from __future__ import annotations
 
@@ -22,7 +26,9 @@ def _triple(s: str, cast=int):
 
 
 def _device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    from ife_tpu_torch.parallel.mesh import default_device
+
+    return default_device()
 
 
 def _load(path):
@@ -46,37 +52,114 @@ def _progress(msg: str):
 # feature tools
 # ---------------------------------------------------------------------------
 
+def _init_distributed(args):
+    """Shared --sharded runtime setup: process-group init (no-op without a
+    coordinator), the block mesh, optional restart manifest. Returns
+    (mesh, manifest, primary).
+
+    ife_tpu shards over "all devices"; a process of the port drives one
+    device, so the mesh has --blocks blocks (default: one per process), 2D
+    when there are several, dealt evenly to the processes."""
+    from ife_tpu_torch.parallel import make_mesh, mesh_dims
+    from ife_tpu_torch.parallel.launcher import (
+        ShardManifest,
+        distributed_init_from_args,
+        is_primary,
+    )
+
+    pid, nprocs = distributed_init_from_args(args)
+    n = getattr(args, "blocks", None) or nprocs
+    mesh = make_mesh(n, ("x", "y") if n > 1 else ("x",))
+    _progress(f"process {pid}/{nprocs}: sharding over {n} blocks on "
+              f"{mesh.device}: {dict(zip(mesh.axis_names, mesh_dims(mesh)))}")
+    manifest_path = getattr(args, "manifest", None)
+    if manifest_path and nprocs > 1:
+        # per-process manifest (and caches derived from it): restartable
+        # WITHOUT assuming a shared filesystem across hosts
+        manifest_path = f"{manifest_path}.p{pid}"
+    manifest = ShardManifest(manifest_path) if manifest_path else None
+    return mesh, manifest, is_primary()
+
+
+def _add_distributed_flags(p):
+    """Flags shared by every --sharded-capable subcommand."""
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="multi-process coordinator address "
+                   "(or env IFE_COORDINATOR); single-process if unset")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="total process count (or env IFE_NUM_PROCESSES)")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's index (or env IFE_PROCESS_ID)")
+    p.add_argument("--blocks", type=int, default=None,
+                   help="blocks of the --sharded mesh (default: one per "
+                   "process; a multiple of the process count)")
+    p.add_argument("--manifest", default=None, metavar="PATH",
+                   help="shard-manifest JSON: completed blocks are skipped "
+                   "on restart (failure recovery)")
+
+
 def conf_extract_features(p):
     p.add_argument("-i", "--image", required=True)
     p.add_argument("-m", "--mask", required=True)
     p.add_argument("-o", "--out", required=True, help="output prefix")
     p.add_argument("-s", "--scales", type=float, nargs="+", required=True)
     p.add_argument("--sharded", action="store_true",
-                   help="block-shard the volume over all devices "
-                   "(not yet ported: raises)")
+                   help="cut the volume into --blocks blocks, in this process "
+                   "or over several with --coordinator (halo-exchange path)")
+    _add_distributed_flags(p)
 
 
 def run_extract_features(args):
     """Reference tools/ExtractFeatures.cxx: per scale, 8 feature volumes
-    written as <out>_scale_<s><FeatureName>.nii.gz."""
+    written as <out>_scale_<s><FeatureName>.nii.gz.
+
+    --sharded runs each scale over the block mesh; --manifest makes the run
+    restartable (completed scales are skipped)."""
     from ife_tpu_torch.ops.features import FEATURE_NAMES, features8_auto_channels
     from ife_tpu_torch.utils import stage_timer
 
+    mesh = manifest = None
+    primary = True
     if args.sharded:
-        raise NotImplementedError(
-            "extract-features --sharded is not yet ported to ife_tpu_torch")
+        mesh, manifest, primary = _init_distributed(args)
     dev = _device()
     vol = _load(args.image)
     mask = _load(args.mask)
     img = vol.data.to(device=dev, dtype=torch.float32).contiguous()
     msk = mask.data.to(dev)
     for s in args.scales:
+        key = f"scale_{s:g}"
+        if manifest is not None and manifest.is_done(key):
+            _progress(f"Skipping completed scale {s:g} (manifest)")
+            continue
         _progress(f"Processing scale {s:g}")
         with stage_timer(f"features8[s={s:g}]", voxels=img.numel(), emit=True):
-            feats = [c.cpu() for c in features8_auto_channels(
-                img, msk, float(s), vol.spacing)]
-        for name, ch in zip(FEATURE_NAMES, feats):
-            _save(f"{args.out}_scale_{s:g}{name}.nii.gz", vol.with_data(ch))
+            if mesh is not None:
+                from ife_tpu_torch.parallel import features8_sharded_auto
+
+                feats = features8_sharded_auto(
+                    img, msk, float(s), mesh, vol.spacing).cpu().unbind(-1)
+            else:
+                feats = [c.cpu() for c in features8_auto_channels(
+                    img, msk, float(s), vol.spacing)]
+        if primary:
+            for name, ch in zip(FEATURE_NAMES, feats):
+                _save(f"{args.out}_scale_{s:g}{name}.nii.gz",
+                      vol.with_data(ch.contiguous()))
+        if manifest is not None:
+            # every process records completion in its OWN manifest so a
+            # restart keeps the collective schedule in lockstep
+            manifest.mark_done(
+                key, f"{args.out}_scale_{s:g}{FEATURE_NAMES[-1]}.nii.gz"
+                if primary else None)
+    _shutdown_distributed(args)
+
+
+def _shutdown_distributed(args):
+    if getattr(args, "sharded", False):
+        from ife_tpu_torch.parallel.launcher import distributed_shutdown
+
+        distributed_shutdown()
 
 
 def conf_masked_normalized_convolution(p):
@@ -200,30 +283,54 @@ def conf_make_bag(p):
                    help="histogram the ROIs on the device (the histogram "
                    "kernel on CUDA; mixed ROI sizes run per size class)")
     p.add_argument("--sharded", action="store_true",
-                   help="block-shard the feature pass over all devices "
-                   "(not yet ported: raises)")
+                   help="run the feature pass over the block mesh; the "
+                   "feature volume never touches the host (mixed ROI sizes "
+                   "run per size class)")
+    _add_distributed_flags(p)
 
 
 def run_make_bag(args):
     """Reference tools/MakeBag.cxx: per-ROI concatenated feature histograms
-    -> <prefix>.bag CSV + <prefix>.ROIInfo."""
-    from ife_tpu_torch.io import read_hist_spec, write_matrix_csv, write_rois
-    from ife_tpu_torch.roi.bag import make_bag, make_bag_device
+    -> <prefix>.bag CSV + <prefix>.ROIInfo.
 
-    if args.sharded:
-        raise NotImplementedError(
-            "make-bag --sharded is not yet ported to ife_tpu_torch")
+    --sharded keeps the per-scale feature volumes in blocks on the device
+    and fetches only the (n_rois, 8, bins) frequency block."""
+    from ife_tpu_torch.io import read_hist_spec, write_matrix_csv, write_rois
+    from ife_tpu_torch.roi.bag import make_bag, make_bag_device, make_bag_sharded
+
+    primary = True
     vol = _load(args.image)
     mask = _load(args.mask)
     edges = read_hist_spec(args.hist_spec)
     mask_np = mask.numpy()
-    rois = _get_rois(args, mask_np)
-    bag_fn = make_bag_device if args.device else make_bag
-    bag = bag_fn(vol.numpy(), mask_np, args.scales, edges, rois,
-                 spacing=vol.spacing)
-    write_matrix_csv(f"{args.out}.bag", bag)
-    write_rois(f"{args.out}.ROIInfo", rois)
+    if args.sharded:
+        mesh, _, primary = _init_distributed(args)
+        if getattr(args, "roi_file", None) is None and args.seed is None:
+            # every process must draw IDENTICAL ROIs, but the default must
+            # stay a fresh random sampling like the unsharded run: the
+            # primary draws entropy and broadcasts it. The seed is printed
+            # so the run is reproducible after the fact.
+            import secrets
+
+            from ife_tpu_torch.parallel.launcher import broadcast_int
+
+            args.seed = broadcast_int(secrets.randbits(31))
+            _progress(f"--sharded ROI seed {args.seed} "
+                      "(drawn on primary, broadcast to all processes; "
+                      "pass --seed to reproduce)")
+        rois = _get_rois(args, mask_np)
+        bag = make_bag_sharded(vol.numpy(), mask_np, args.scales, edges, rois,
+                               mesh, spacing=vol.spacing)
+    else:
+        rois = _get_rois(args, mask_np)
+        bag_fn = make_bag_device if args.device else make_bag
+        bag = bag_fn(vol.numpy(), mask_np, args.scales, edges, rois,
+                     spacing=vol.spacing)
+    if primary:
+        write_matrix_csv(f"{args.out}.bag", bag)
+        write_rois(f"{args.out}.ROIInfo", rois)
     _progress(f"Wrote {bag.shape[0]} ROIs x {bag.shape[1]} columns")
+    _shutdown_distributed(args)
 
 
 def conf_determine_bin_edges(p):
@@ -238,7 +345,12 @@ def conf_determine_bin_edges(p):
                    help="mask labels counted as foreground")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--sharded", action="store_true",
-                   help="scalable sharded path (not yet ported: raises)")
+                   help="scalable path: features stay in blocks on the "
+                   "device, per-image fine histograms all-reduce, edges come "
+                   "from CDF inversion (approximate; replaces the global sort)")
+    p.add_argument("--fine-bins", type=int, default=4096,
+                   help="fine pre-histogram resolution for --sharded")
+    _add_distributed_flags(p)
 
 
 def _foreground_mask(arr: np.ndarray, labels) -> np.ndarray:
@@ -249,6 +361,63 @@ def _foreground_mask(arr: np.ndarray, labels) -> np.ndarray:
     for v in labels:
         fg |= (arr == v)
     return fg
+
+
+def _run_determine_bin_edges_sharded(args):
+    """Scalable bin-edge path: per image, per (scale, feature), a fine
+    histogram over the block mesh (min/max and dense counts all-reduced,
+    parallel/stats.py); per-image histograms merge across images by
+    piecewise-linear CDF resampling; the equalized edges invert the merged
+    CDF. Replaces the reference's all-samples global sort, which needs every
+    sample in one address space. --manifest caches per-image histograms in
+    <manifest>.<image-index>.npz so restarts skip completed images."""
+    from ife_tpu_torch.io import read_pair_list, write_hist_spec
+    from ife_tpu_torch.ops.features import FEATURE_NAMES, NUM_FEATURES
+    from ife_tpu_torch.parallel.stats import (
+        merge_fine_histograms,
+        sharded_feature_fine_histograms,
+    )
+    from ife_tpu_torch.stats.equalize import edges_from_dense_counts
+
+    mesh, manifest, primary = _init_distributed(args)
+    pairs = read_pair_list(args.pair_list)
+    n_hists = NUM_FEATURES * len(args.scales)
+    per_hist = [[] for _ in range(n_hists)]
+    for idx, (img_path, mask_path) in enumerate(pairs):
+        key = f"image_{idx}"
+        # the cache path derives from the manifest's (per-process) path, so
+        # multi-host restarts never read another host's files
+        cache = f"{manifest.path}.{idx}.npz" if manifest is not None else None
+        if manifest is not None and manifest.is_done(key):
+            _progress(f"Loading cached histograms for {img_path} (manifest)")
+            z = np.load(cache)
+            for h in range(n_hists):
+                per_hist[h].append((z[f"bounds_{h}"], z[f"counts_{h}"]))
+            continue
+        _progress(f"Processing {img_path} / {mask_path}")
+        vol = _load(img_path)
+        mask = _load(mask_path)
+        fg = _foreground_mask(mask.numpy(), args.foreground)
+        hists = sharded_feature_fine_histograms(
+            vol.numpy(), fg.astype(np.uint8), args.scales, mesh,
+            vol.spacing, n_fine=args.fine_bins)
+        for h, bc in enumerate(hists):
+            per_hist[h].append(bc)
+        if manifest is not None:
+            np.savez(
+                cache,
+                **{f"bounds_{h}": b for h, (b, _) in enumerate(hists)},
+                **{f"counts_{h}": c for h, (_, c) in enumerate(hists)},
+            )
+            manifest.mark_done(key, cache)
+    edge_rows = []
+    for vals in per_hist:
+        bounds, counts = merge_fine_histograms(vals)
+        edge_rows.append(edges_from_dense_counts(bounds, counts, args.bins))
+    if primary:
+        write_hist_spec(args.out, edge_rows, scales=args.scales,
+                        feature_names=FEATURE_NAMES)
+    _shutdown_distributed(args)
 
 
 def run_determine_bin_edges(args):
@@ -264,8 +433,7 @@ def run_determine_bin_edges(args):
     from ife_tpu_torch.stats.equalize import determine_edges_for_equalized_histogram
 
     if args.sharded:
-        raise NotImplementedError(
-            "determine-bin-edges --sharded is not yet ported to ife_tpu_torch")
+        return _run_determine_bin_edges_sharded(args)
     dev = _device()
     pairs = read_pair_list(args.pair_list)
     rng = np.random.default_rng(args.seed)

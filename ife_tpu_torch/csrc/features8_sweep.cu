@@ -34,6 +34,12 @@
 // the TPU kernels). The y/z halo of the extended tile holds the clamped
 // input rows, which is the ZeroFluxNeumann pad of the plain passes.
 //
+// Shard blocks: both sweep entries take the four face clamps of s_ring.cuh
+// (the clamp_ref operand of the TPU kernels). On a halo-extended shard block
+// the smoothing reads the halo as data, and the tail's phantom clamps to the
+// smoothed field at the kept core's true faces only; the default, the
+// array's own faces, is the whole-volume kernel to the bit.
+//
 // ife_features8_sweep_multi (features8_sweep_multi_kernel) replaces
 // ife_tpu/kernels/fused.py:fused_features8_sweep_multi: S scales of the sweep
 // in one launch. A block loads each extended raw plane (c*f and c, extended
@@ -164,11 +170,12 @@ template <bool kClampMask>
 __device__ __forceinline__ void sweep_emit(const float* ring, int p, int xa,
                                            int xb, int X, int Y, int Z, int y0,
                                            int z0, const float* mask,
-                                           float* out, const StencilRecip& k) {
+                                           float* out, const StencilRecip& k,
+                                           const FaceClamps& fc) {
     for (int x = max(p - 1, xa); x <= (p == X - 1 ? p : p - 1); ++x) {
         if (x >= xb) break;
         emit_features8_plane<kSweepTileY, kSweepTileZ, kClampMask>(
-            ring, x, X, Y, Z, y0, z0, mask, out, k);
+            ring, x, X, Y, Z, y0, z0, mask, out, k, fc);
     }
 }
 
@@ -181,7 +188,7 @@ __global__ void __launch_bounds__(kSweepThreads)
 features8_sweep_kernel(const float* __restrict__ a, const float* __restrict__ b,
                        const float* __restrict__ mask, float* __restrict__ out,
                        int X, int Y, int Z, int chunk_x, Taps tx, Taps ty,
-                       Taps tz, StencilRecip k) {
+                       Taps tz, StencilRecip k, FaceClamps fc) {
     extern __shared__ float smem[];
     constexpr int SY = kSweepSY, SZ = kSweepSZ, NC = kSweepCells;
     const int rx = tx.r;
@@ -234,7 +241,8 @@ features8_sweep_kernel(const float* __restrict__ a, const float* __restrict__ b,
         sweep_x_pass_divide(rn, rd, ((p - rx) % W + W) % W, tx,
                             ring + (p % 3) * NC);
         __syncthreads();
-        sweep_emit<kSmoothYZ>(ring, p, xa, xb, X, Y, Z, y0, z0, mask, out, k);
+        sweep_emit<kSmoothYZ>(ring, p, xa, xb, X, Y, Z, y0, z0, mask, out, k,
+                              fc);
         // the next plane overwrites a ring slot the x pass read and, two
         // planes on, the s slot the tail read: the syncs after its loads
         // order those writes after these reads
@@ -245,7 +253,8 @@ template <bool kSmoothYZ>
 static int launch_sweep(const float* a, const float* b, const float* mask,
                         float* out, long long X, long long Y, long long Z,
                         const Taps& tx, const Taps& ty, const Taps& tz,
-                        const StencilRecip& k, cudaStream_t stream) {
+                        const StencilRecip& k, const FaceClamps& fc,
+                        cudaStream_t stream) {
     const size_t smem =
         sweep_smem_floats(kSmoothYZ, tx.r, ty.r, tz.r) * sizeof(float);
     if (smem > (size_t)kSweepMaxSmem) return (int)cudaErrorInvalidValue;
@@ -260,28 +269,44 @@ static int launch_sweep(const float* a, const float* b, const float* mask,
                     (unsigned)((Y + kSweepTileY - 1) / kSweepTileY),
                     (unsigned)((X + chunk - 1) / chunk));
     features8_sweep_kernel<kSmoothYZ><<<grid, kSweepThreads, smem, stream>>>(
-        a, b, mask, out, (int)X, (int)Y, (int)Z, chunk, tx, ty, tz, k);
+        a, b, mask, out, (int)X, (int)Y, (int)Z, chunk, tx, ty, tz, k, fc);
     return (int)cudaGetLastError();
 }
 
+static bool make_faces(long long x_lo, long long x_hi, long long y_lo,
+                       long long y_hi, FaceClamps* fc) {
+    const long long lim = 1LL << 30;  // the "no true face" sentinels
+    const long long v[4] = {x_lo, x_hi, y_lo, y_hi};
+    for (int i = 0; i < 4; ++i)
+        if (v[i] < -lim || v[i] > lim) return false;
+    *fc = FaceClamps{(int)x_lo, (int)x_hi, (int)y_lo, (int)y_hi};
+    return true;
+}
+
 // image, mask: contiguous (X, Y, Z) float32 (the mask raw, clamped to [0, 1]
-// here); out: contiguous (8, X, Y, Z); taps_*: host arrays of 2r+1 floats.
+// here); out: contiguous (8, X, Y, Z); taps_*: host arrays of 2r+1 floats;
+// x_lo .. y_hi: the face clamps (0, X - 1, 0, Y - 1 for a whole volume).
 extern "C" int ife_features8_sweep(const float* image, const float* mask,
                                    float* out, long long X, long long Y,
                                    long long Z,
                                    const float* taps_x, long long ntx,
                                    const float* taps_y, long long nty,
                                    const float* taps_z, long long ntz,
+                                   long long x_lo, long long x_hi,
+                                   long long y_lo, long long y_hi,
                                    float r2x, float r2y, float r2z,
                                    float rxx, float ryy, float rzz,
                                    cudaStream_t stream) {
+    FaceClamps fc;
+    if (!make_faces(x_lo, x_hi, y_lo, y_hi, &fc))
+        return (int)cudaErrorInvalidValue;
     Taps tx, ty, tz;
     if (!make_taps(taps_x, ntx, &tx) || !make_taps(taps_y, nty, &ty)
         || !make_taps(taps_z, ntz, &tz))
         return (int)cudaErrorInvalidValue;
     const StencilRecip k{r2x, r2y, r2z, rxx, ryy, rzz};
     return launch_sweep<true>(image, mask, mask, out, X, Y, Z, tx, ty, tz, k,
-                              stream);
+                              fc, stream);
 }
 
 // num_yz, den_yz: the y/z-smoothed numerator and denominator; mask: the
@@ -300,7 +325,8 @@ extern "C" int ife_features8_xs_stream(const float* num_yz,
         return (int)cudaErrorInvalidValue;
     const StencilRecip k{r2x, r2y, r2z, rxx, ryy, rzz};
     return launch_sweep<false>(num_yz, den_yz, mask, out, X, Y, Z, tx, unit,
-                               unit, k, stream);
+                               unit, k, whole_volume_faces((int)X, (int)Y),
+                               stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -334,7 +360,8 @@ features8_sweep_multi_kernel(const float* __restrict__ image,
                              const float* __restrict__ mask,
                              float* __restrict__ out, int X, int Y, int Z,
                              int chunk_x, SweepScales sc,
-                             const float* __restrict__ taps, StencilRecip k) {
+                             const float* __restrict__ taps, StencilRecip k,
+                             FaceClamps fc) {
     extern __shared__ float smem[];
     constexpr int SY = kSweepSY, SZ = kSweepSZ, NC = kSweepCells;
     int rx_max = 0, ry_max = 0, rz_max = 0;
@@ -408,7 +435,7 @@ features8_sweep_multi_kernel(const float* __restrict__ image,
                                 ring + (p % 3) * NC);
             __syncthreads();
             sweep_emit<true>(ring, p, xa, xb, X, Y, Z, y0, z0, mask,
-                             out + (long long)s * 8 * n, k);
+                             out + (long long)s * 8 * n, k, fc);
         }
         // the next raw load overwrites pn, pd, which the last y pass read
         // before at least one sync; every ring hazard is as in the single
@@ -418,16 +445,21 @@ features8_sweep_multi_kernel(const float* __restrict__ image,
 
 // image, mask: contiguous (X, Y, Z) float32; out: contiguous (S, 8, X, Y, Z);
 // taps: DEVICE array [S][3][kMaxTaps] of float32; radii: HOST array [S][3]
-// (x, y, z per scale).
+// (x, y, z per scale); x_lo .. y_hi: the face clamps, as in the single sweep.
 extern "C" int ife_features8_sweep_multi(const float* image, const float* mask,
                                          float* out, long long X, long long Y,
                                          long long Z, long long S,
                                          const float* taps,
                                          const long long* radii,
+                                         long long x_lo, long long x_hi,
+                                         long long y_lo, long long y_hi,
                                          float r2x, float r2y, float r2z,
                                          float rxx, float ryy, float rzz,
                                          cudaStream_t stream) {
     if (S < 1 || S > kMaxScales) return (int)cudaErrorInvalidValue;
+    FaceClamps fc;
+    if (!make_faces(x_lo, x_hi, y_lo, y_hi, &fc))
+        return (int)cudaErrorInvalidValue;
     SweepScales sc{};
     sc.S = (int)S;
     int rx_max = 0;
@@ -452,6 +484,6 @@ extern "C" int ife_features8_sweep_multi(const float* image, const float* mask,
                     (unsigned)((Y + kSweepTileY - 1) / kSweepTileY),
                     (unsigned)((X + chunk - 1) / chunk));
     features8_sweep_multi_kernel<<<grid, kSweepThreads, smem, stream>>>(
-        image, mask, out, (int)X, (int)Y, (int)Z, chunk, sc, taps, k);
+        image, mask, out, (int)X, (int)Y, (int)Z, chunk, sc, taps, k, fc);
     return (int)cudaGetLastError();
 }

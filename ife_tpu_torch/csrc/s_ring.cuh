@@ -1,9 +1,10 @@
-// The last step of every kernel that sweeps x with a ring of three smoothed
-// planes in shared memory (features8_sweep.cu, features8_ys_multi.cu): emit
-// the eight masked channels of plane x on the block's (y, z) tile through
-// the one tail of features8_tail.cuh.
+// The last step of every kernel that holds smoothed planes in shared memory
+// (a ring of three while sweeping x: features8_sweep.cu,
+// features8_ys_multi.cu; a block's whole window: features8_tap.cu): emit the
+// eight masked channels of plane x on the block's (y, z) tile through the one
+// tail of features8_tail.cuh.
 //
-// The ring holds s on the tile plus a one-voxel halo: plane p lives in slot
+// A ring holds s on the tile plus a one-voxel halo: plane p lives in slot
 // p % 3, and cell (i, j) of a plane is s at the CLAMPED position
 // (clamp(y0 - 1 + i), clamp(z0 - 1 + j)). The tail's neighbours are looked up
 // at clamped indices in all three axes, so at a true face the phantom
@@ -18,28 +19,51 @@ __device__ __forceinline__ float clamp_unit_mask(float m) {
     return m < 0.0f ? 0.0f : (m > 1.0f ? 1.0f : m);
 }
 
-// ring: [3][(kTileY + 2) * (kTileZ + 2)] floats; planes x - 1, x, x + 1
-// (clamped to the volume) must be in their slots. mask: the (X, Y, Z) mask,
+// The faces at which the stencil's phantom neighbour clamps to the smoothed
+// field itself: (0, X - 1, 0, Y - 1) for a whole volume. For a halo-extended
+// shard block (ife_tpu/parallel/features.py:_features8_block_sweep, the
+// clamp_ref of ife_tpu/kernels/fused.py:_features8_sweep_kernel) they are the
+// kept core's faces on the sides that are true volume faces and -/+2^30 on
+// the sides where the halo holds a neighbour's real data, which the stencil
+// then reads as data. A row at or below x_lo takes itself as its x - 1
+// neighbour, a row at or above x_hi itself as its x + 1 neighbour; y alike.
+// The array's own ends always clamp.
+struct FaceClamps {
+    int x_lo, x_hi, y_lo, y_hi;
+};
+
+__host__ __device__ inline FaceClamps whole_volume_faces(int X, int Y) {
+    return FaceClamps{0, X - 1, 0, Y - 1};
+}
+
+__device__ __forceinline__ int lower_neighbour(int i, int lo) {
+    return i <= lo ? i : max(i - 1, 0);
+}
+
+__device__ __forceinline__ int upper_neighbour(int i, int hi, int n) {
+    return i >= hi ? i : min(i + 1, n - 1);
+}
+
+// Emit plane x from the three planes s3 = {s at the x - 1 neighbour, s at x,
+// s at the x + 1 neighbour} (the caller resolved the x faces), each
+// [(kTileY + 2) * (kTileZ + 2)] floats: cell (i, j) is s at the CLAMPED
+// position (clamp(y0 - 1 + i), clamp(z0 - 1 + j)). mask: the (X, Y, Z) mask,
 // clamped to [0, 1] first when kClampMask; out: (8, X, Y, Z).
 template <int kTileY, int kTileZ, bool kClampMask>
-__device__ __forceinline__ void emit_features8_plane(
-    const float* ring, int x, int X, int Y, int Z, int y0, int z0,
+__device__ __forceinline__ void emit_features8_planes(
+    const float* const (&s3)[3], int x, int X, int Y, int Z, int y0, int z0,
     const float* __restrict__ mask, float* __restrict__ out,
-    const StencilRecip& k) {
+    const StencilRecip& k, int y_lo, int y_hi) {
     constexpr int SZ = kTileZ + 2;
-    constexpr int NC = (kTileY + 2) * SZ;
     const long long plane = (long long)Y * Z;
     const long long n = (long long)X * plane;
-    const float* s3[3] = {ring + (clamp_index(x - 1, X) % 3) * NC,
-                          ring + (x % 3) * NC,
-                          ring + (clamp_index(x + 1, X) % 3) * NC};
     for (int idx = threadIdx.x; idx < kTileY * kTileZ; idx += blockDim.x) {
         const int y = y0 + idx / kTileZ;
         const int z = z0 + idx % kTileZ;
         if (y >= Y || z >= Z) continue;
-        // ring rows/columns of the clamped neighbours
-        const int iy[3] = {clamp_index(y - 1, Y) - y0 + 1, y - y0 + 1,
-                           clamp_index(y + 1, Y) - y0 + 1};
+        // rows/columns of the clamped neighbours
+        const int iy[3] = {lower_neighbour(y, y_lo) - y0 + 1, y - y0 + 1,
+                           upper_neighbour(y, y_hi, Y) - y0 + 1};
         const int iz[3] = {clamp_index(z - 1, Z) - z0 + 1, z - z0 + 1,
                            clamp_index(z + 1, Z) - z0 + 1};
         float v[3][3][3];
@@ -63,4 +87,29 @@ __device__ __forceinline__ void emit_features8_plane(
         for (int c = 0; c < 6; ++c)
             out[(c + 2) * n + i] = inside ? f[c] : 0.0f;
     }
+}
+
+// ring: [3][(kTileY + 2) * (kTileZ + 2)] floats; the planes of x and of its
+// two neighbours under `fc` must be in their slots.
+template <int kTileY, int kTileZ, bool kClampMask>
+__device__ __forceinline__ void emit_features8_plane(
+    const float* ring, int x, int X, int Y, int Z, int y0, int z0,
+    const float* __restrict__ mask, float* __restrict__ out,
+    const StencilRecip& k, const FaceClamps& fc) {
+    constexpr int NC = (kTileY + 2) * (kTileZ + 2);
+    const float* const s3[3] = {
+        ring + (lower_neighbour(x, fc.x_lo) % 3) * NC, ring + (x % 3) * NC,
+        ring + (upper_neighbour(x, fc.x_hi, X) % 3) * NC};
+    emit_features8_planes<kTileY, kTileZ, kClampMask>(
+        s3, x, X, Y, Z, y0, z0, mask, out, k, fc.y_lo, fc.y_hi);
+}
+
+// a whole volume: the true faces are the array's
+template <int kTileY, int kTileZ, bool kClampMask>
+__device__ __forceinline__ void emit_features8_plane(
+    const float* ring, int x, int X, int Y, int Z, int y0, int z0,
+    const float* __restrict__ mask, float* __restrict__ out,
+    const StencilRecip& k) {
+    emit_features8_plane<kTileY, kTileZ, kClampMask>(
+        ring, x, X, Y, Z, y0, z0, mask, out, k, whole_volume_faces(X, Y));
 }

@@ -14,6 +14,7 @@ kernel launches per kernel. Counterparts of ife_tpu/kernels/fused.py:
   fused_features8_sweep_multi,
   fused_features8_xs_stream                   -> csrc/features8_sweep.cu
   fused_features8_ys_multi                    -> csrc/features8_ys_multi.cu
+  fused_features8_tap, fused_features8_xs     -> csrc/features8_tap.cu
 
 and of ife_tpu/kernels/histogram.py:
 
@@ -24,8 +25,10 @@ and of ife_tpu/kernels/histogram.py:
 plus fused_smooth_yz and fused_smooth_xz (csrc/normalized_conv.cu), the y/z
 passes ahead of the xs-stream kernel and the x/z passes ahead of the
 ys-multi kernel. ife_tpu's fused_features8 dispatcher is torch code here:
-ops.features.fused_features8. Still without a counterpart:
-fused_features8_tap and fused_features8_xs.
+ops.features.fused_features8. Every function of ife_tpu/kernels that reaches
+a Pallas kernel has its counterpart, with the shard modes of the sharded
+path (parallel/): clamps of the two sweeps, x_halo and pre_padded of the
+Hessian and post kernels, each counted apart in LAUNCHES.
 """
 from ife_tpu_torch.kernels._build import LAUNCHES, reset_launches  # noqa: F401
 from ife_tpu_torch.kernels.features8_post import (  # noqa: F401
@@ -34,6 +37,7 @@ from ife_tpu_torch.kernels.features8_post import (  # noqa: F401
     fused_features8_post_stream,
 )
 from ife_tpu_torch.kernels.features8_sweep import (  # noqa: F401
+    NO_FACE,
     features8_sweep_multi_plain,
     features8_sweep_plain,
     features8_xs_stream_plain,
@@ -43,6 +47,14 @@ from ife_tpu_torch.kernels.features8_sweep import (  # noqa: F401
     sweep_fits,
     sweep_multi_fits,
     xs_stream_fits,
+)
+from ife_tpu_torch.kernels.features8_tap import (  # noqa: F401
+    features8_tap_plain,
+    features8_xs_plain,
+    fused_features8_tap,
+    fused_features8_xs,
+    tap_fits,
+    xs_fits,
 )
 from ife_tpu_torch.kernels.features8_ys_multi import (  # noqa: F401
     features8_ys_multi_plain,

@@ -40,15 +40,28 @@ NVCC_FLAGS = (
     "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# kernel name -> number of successful launches of its C entry point.
-# "normalized_conv_tiled" has no entry of its own: it counts the launches of
+# Names counted in LAUNCHES that have no C entry of their own, and the entry
+# they launch: "normalized_conv_tiled" counts the launches of
 # ife_normalized_conv that fused_normalized_conv_sweep_tiled makes, one per
-# slab.
-LAUNCHES = {"hessian_eig": 0, "normalized_conv": 0, "features8_post": 0,
-            "features8_sweep": 0, "features8_xs_stream": 0, "smooth_yz": 0,
-            "histogram": 0, "smooth_xz": 0, "normalized_conv_tiled": 0,
-            "features8_post_windowed": 0, "features8_ys_multi": 0,
-            "features8_sweep_multi": 0}
+# slab; the others count the shard modes (clamps, x_halo, pre_padded) of an
+# entry apart from its whole-volume mode.
+COUNTED_AS = {
+    "normalized_conv_tiled": "normalized_conv",
+    "features8_sweep_clamps": "features8_sweep",
+    "features8_sweep_multi_clamps": "features8_sweep_multi",
+    "hessian_eig_x_halo": "hessian_eig",
+    "hessian_eig_pre_padded": "hessian_eig",
+    "features8_post_x_halo": "features8_post",
+    "features8_post_pre_padded": "features8_post",
+    "features8_post_windowed_pre_padded": "features8_post_windowed",
+}
+
+# kernel name -> number of successful launches of its C entry point
+LAUNCHES = dict.fromkeys(
+    ("hessian_eig", "normalized_conv", "features8_post", "features8_sweep",
+     "features8_xs_stream", "smooth_yz", "histogram", "smooth_xz",
+     "features8_post_windowed", "features8_ys_multi", "features8_sweep_multi",
+     "features8_tap", "features8_xs", *COUNTED_AS), 0)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
@@ -57,23 +70,28 @@ _FP = ctypes.POINTER(ctypes.c_float)
 # C signatures: every pointer and the stream as void*, dims as int64,
 # constants as float (an undeclared argument would be passed as a 32-bit int)
 _SIGNATURES = {
-    "ife_hessian_eig": [_P, _P, _I, _I, _I] + [_F] * 6 + [_P],
-    "ife_features8_post": [_P, _P, _P, _I, _I, _I] + [_F] * 6 + [_P],
+    "ife_hessian_eig": [_P, _P, _P, _P, _I, _I, _I, _I] + [_F] * 6 + [_P],
+    "ife_features8_post": [_P, _P, _P, _P, _P, _I, _I, _I, _I] + [_F] * 6
+                          + [_P],
     "ife_normalized_conv": [_P, _P, _P, _P, _P, _I, _I, _I,
                             _FP, _I, _FP, _I, _FP, _I, _P],
     "ife_smooth_yz": [_P, _P, _P, _P, _I, _I, _I, _FP, _I, _FP, _I, _P],
     "ife_features8_sweep": [_P, _P, _P, _I, _I, _I, _FP, _I, _FP, _I, _FP,
-                            _I] + [_F] * 6 + [_P],
+                            _I] + [_I] * 4 + [_F] * 6 + [_P],
     "ife_features8_xs_stream": [_P, _P, _P, _P, _I, _I, _I, _FP, _I]
                                + [_F] * 6 + [_P],
     "ife_histogram": [_P, _I, _P, _I, _P, _I, _P] + [_I] * 8 + [_P, _P],
     "ife_smooth_xz": [_P, _P, _P, _P, _I, _I, _I, _FP, _I, _FP, _I, _P],
-    "ife_features8_post_windowed": [_P, _P, _P, _I, _I, _I, _I, _I]
+    "ife_features8_post_windowed": [_P, _P, _P, _I, _I, _I, _I, _I, _I]
                                    + [_F] * 6 + [_P],
     "ife_features8_ys_multi": [_P, _P, _I, _P, _P, _I, _I, _I, _P, _P]
                               + [_F] * 6 + [_P],
     "ife_features8_sweep_multi": [_P, _P, _P, _I, _I, _I, _I, _P, _P]
-                                 + [_F] * 6 + [_P],
+                                 + [_I] * 4 + [_F] * 6 + [_P],
+    "ife_features8_tap": [_P, _P, _P, _I, _I, _I, _FP, _I, _FP, _I, _FP, _I]
+                         + [_F] * 6 + [_P],
+    "ife_features8_xs": [_P, _P, _P, _P, _I, _I, _I, _FP, _I] + [_F] * 6
+                        + [_P],
 }
 
 MAX_TAPS = 257    # csrc/fir.cuh kMaxTaps: radius <= 128 voxels
@@ -170,7 +188,8 @@ def lib() -> ctypes.CDLL:
 def launch(kernel: str, device: torch.device, *args, count_as=None) -> None:
     """Call the C entry ``ife_<kernel>`` on `device`'s current stream
     (appended as the last argument); raise on a launch error, else count
-    one launch of `kernel` (of `count_as` when given)."""
+    one launch of `kernel` (of `count_as`, a name of COUNTED_AS, when
+    given)."""
     handle = lib()
     entry = f"ife_{kernel}"
     with torch.cuda.device(device):

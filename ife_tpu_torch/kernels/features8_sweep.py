@@ -73,32 +73,63 @@ def _c_taps(taps):
     return (ctypes.c_float * len(taps))(*taps), len(taps)
 
 
+NO_FACE = 1 << 30  # a clamp of -NO_FACE / +NO_FACE: no true face on that side
+
+
+def face_clamps(name: str, clamps, shape):
+    """`clamps` as four Python ints [x_lo, x_hi, y_lo, y_hi] (None: the
+    array's own faces, [0, X - 1, 0, Y - 1]). On a halo-extended shard block
+    they are the kept core's faces on the sides that are true volume faces,
+    and -/+NO_FACE where the halo holds a neighbour's data; the stencil's
+    phantom clamps to the smoothed field there and nowhere else
+    (csrc/s_ring.cuh FaceClamps). Host integers: nothing is read from the
+    card."""
+    if clamps is None:
+        return [0, shape[0] - 1, 0, shape[1] - 1]
+    if isinstance(clamps, torch.Tensor) and clamps.device.type != "cpu":
+        raise ValueError(f"{name}: clamps must be host integers, got a "
+                         f"tensor on {clamps.device}")
+    vals = [int(v) for v in clamps]
+    if len(vals) != 4 or max(abs(v) for v in vals) > NO_FACE:
+        raise ValueError(f"{name}: clamps must be [x_lo, x_hi, y_lo, y_hi] "
+                         f"within +-2^30, got {vals}")
+    return vals
+
+
 def features8_sweep_plain(image: torch.Tensor, mask: torch.Tensor,
                           sigma: float,
                           spacing: Sequence[float] = (1.0, 1.0, 1.0),
-                          truncate: float = 4.5):
+                          truncate: float = 4.5, clamps=None):
     """The sweep kernel's plain twin: the normalized convolution with the
     clamped mask as certainty, smoothed along y, z, then x (the kernel's
-    order), then the post-smoothing tail (polynomial eigen path), masked by
-    a select. Tuple of eight (X, Y, Z) tensors."""
+    order), then the post-smoothing tail (polynomial eigen path) with its
+    stencil clamped at `clamps` (face_clamps), masked by a select. Tuple of
+    eight (X, Y, Z) tensors."""
     m = torch.clamp(mask.to(image.dtype), 0, 1)
     num, den = smooth_yz_plain(image, m, sigma, spacing, truncate)
-    return features8_xs_stream_plain(num, den, m, sigma, spacing, truncate)
+    return features8_xs_stream_plain(num, den, m, sigma, spacing, truncate,
+                                     clamps)
 
 
 def fused_features8_sweep(image: torch.Tensor, mask: torch.Tensor,
                           sigma: float,
                           spacing: Sequence[float] = (1.0, 1.0, 1.0),
-                          truncate: float = 4.5, stack: bool = True):
+                          truncate: float = 4.5, stack: bool = True,
+                          clamps=None):
     """features8 of `image` at one scale in one pass; `mask` is clamped to
     [0, 1] (the certainty and, nonzero, the output mask). An (8, X, Y, Z)
     tensor when stack, else a tuple of eight.
 
+    clamps: [x_lo, x_hi, y_lo, y_hi], the true faces of a halo-extended shard
+    block (face_clamps); None is the whole volume.
+
     CUDA tensors (contiguous float32 of one shape) launch the kernel; CPU
     tensors run the plain twin; any other input raises.
     """
+    faces = face_clamps("fused_features8_sweep", clamps, image.shape)
     if use_plain_twin("fused_features8_sweep", image):
-        feats = features8_sweep_plain(image, mask, sigma, spacing, truncate)
+        feats = features8_sweep_plain(image, mask, sigma, spacing, truncate,
+                                      None if clamps is None else faces)
         return torch.stack(feats, dim=0) if stack else feats
     check_cuda_volume("fused_features8_sweep image", image)
     check_cuda_volume("fused_features8_sweep mask", mask, shape=image.shape)
@@ -114,21 +145,24 @@ def fused_features8_sweep(image: torch.Tensor, mask: torch.Tensor,
     out = torch.empty((8, X, Y, Z), dtype=image.dtype, device=image.device)
     launch("features8_sweep", image.device,
            image.data_ptr(), mask.data_ptr(), out.data_ptr(), X, Y, Z,
-           tx, ntx, ty, nty, tz, ntz, *stencil_reciprocals(spacing))
+           tx, ntx, ty, nty, tz, ntz, *faces, *stencil_reciprocals(spacing),
+           count_as=None if clamps is None else "features8_sweep_clamps")
     return out if stack else tuple(out.unbind(0))
 
 
 def features8_xs_stream_plain(num_yz: torch.Tensor, den_yz: torch.Tensor,
                               mask: torch.Tensor, sigma: float,
                               spacing: Sequence[float] = (1.0, 1.0, 1.0),
-                              truncate: float = 4.5):
+                              truncate: float = 4.5, clamps=None):
     """The xs-stream kernel's plain twin: the x pass of the y/z-smoothed
-    numerator and denominator, their divide, then the post-smoothing tail.
-    Tuple of eight (X, Y, Z) tensors."""
+    numerator and denominator, their divide, then the post-smoothing tail
+    (clamped at `clamps`, four ints, for the sweep's twin). Tuple of eight
+    (X, Y, Z) tensors."""
     hx = float(spacing[0])
     s = (gaussian_smooth_axis(num_yz, 0, sigma, hx, truncate)
          / gaussian_smooth_axis(den_yz, 0, sigma, hx, truncate))
-    return features8_post_plain(s, mask, spacing)
+    faces = None if clamps is None else (clamps[:2], clamps[2:])
+    return features8_post_plain(s, mask, spacing, faces=faces)
 
 
 def fused_features8_xs_stream(num_yz: torch.Tensor, den_yz: torch.Tensor,
@@ -191,11 +225,11 @@ def sweep_multi_fits(sigmas, spacing: Sequence[float],
 def features8_sweep_multi_plain(image: torch.Tensor, mask: torch.Tensor,
                                 sigmas,
                                 spacing: Sequence[float] = (1.0, 1.0, 1.0),
-                                truncate: float = 4.5):
+                                truncate: float = 4.5, clamps=None):
     """The multi-scale sweep's plain twin: features8_sweep_plain per scale.
     A tuple of S tuples of eight (X, Y, Z) tensors."""
     return tuple(features8_sweep_plain(image, mask, float(s), spacing,
-                                       truncate) for s in sigmas)
+                                       truncate, clamps) for s in sigmas)
 
 
 def fused_features8_sweep_multi(image: torch.Tensor, mask: torch.Tensor,
@@ -207,24 +241,22 @@ def fused_features8_sweep_multi(image: torch.Tensor, mask: torch.Tensor,
     the image and the mask once; per scale exactly fused_features8_sweep. An
     (S, 8, X, Y, Z) tensor when stack, else a tuple of S tuples of eight.
 
-    `clamps` (the true faces of a halo-extended shard block) is not yet
-    ported: it comes with the sharded path.
+    clamps: [x_lo, x_hi, y_lo, y_hi], the true faces of a halo-extended shard
+    block (face_clamps), shared by every scale; None is the whole volume.
 
     CUDA tensors (contiguous float32 of one shape) make ONE kernel launch,
     or raise when the scale set does not fit one (sweep_multi_fits): there is
     no per-scale fallback. CPU tensors run the plain twin; any other input
     raises.
     """
-    if clamps is not None:
-        raise NotImplementedError(
-            "fused_features8_sweep_multi(clamps=...) is not yet ported: it "
-            "serves the sharded path (ife_tpu.parallel)")
+    faces = face_clamps("fused_features8_sweep_multi", clamps, image.shape)
     sigmas = tuple(float(s) for s in sigmas)
     if not sigmas:
         raise ValueError("fused_features8_sweep_multi: no scale given")
     if use_plain_twin("fused_features8_sweep_multi", image):
-        groups = features8_sweep_multi_plain(image, mask, sigmas, spacing,
-                                             truncate)
+        groups = features8_sweep_multi_plain(
+            image, mask, sigmas, spacing, truncate,
+            None if clamps is None else faces)
         if stack:
             return torch.stack([torch.stack(g, 0) for g in groups], 0)
         return groups
@@ -246,7 +278,9 @@ def fused_features8_sweep_multi(image: torch.Tensor, mask: torch.Tensor,
     out = torch.empty((S, 8, X, Y, Z), dtype=image.dtype, device=image.device)
     launch("features8_sweep_multi", image.device,
            image.data_ptr(), mask.data_ptr(), out.data_ptr(), X, Y, Z, S,
-           taps.data_ptr(), radii, *stencil_reciprocals(spacing))
+           taps.data_ptr(), radii, *faces, *stencil_reciprocals(spacing),
+           count_as=(None if clamps is None
+                     else "features8_sweep_multi_clamps"))
     # `taps` is freed when this returns; the caching allocator reuses the
     # block only in stream order, after the launch that reads it
     if stack:

@@ -34,7 +34,8 @@ def _edge_pad(x: torch.Tensor, axis: Axis, lo: int, hi: int) -> torch.Tensor:
 
 
 def derivative(
-    x: torch.Tensor, axis: Axis, order: int, spacing: float = 1.0
+    x: torch.Tensor, axis: Axis, order: int, spacing: float = 1.0,
+    face=None,
 ) -> torch.Tensor:
     """Central-difference derivative along one axis.
 
@@ -42,12 +43,25 @@ def derivative(
     ZeroFluxNeumann boundary (edge replicate). Multiplies by the reciprocal
     folded in f64 and rounded once to x's dtype, as ife_tpu and the CUDA
     kernels do.
+
+    face = (lo, hi) moves the clamp from the array's ends to the true faces
+    of a halo-extended shard block (csrc/s_ring.cuh FaceClamps): an index
+    i <= lo takes f[i] for f[i-1], an index i >= hi takes f[i] for f[i+1];
+    the array's own ends still clamp. None is (0, n - 1).
     """
     n = x.shape[axis]
-    xp = _edge_pad(x, axis, 1, 1)
-    fm = xp.narrow(axis, 0, n)
-    f0 = xp.narrow(axis, 1, n)
-    fp = xp.narrow(axis, 2, n)
+    if face is None:
+        xp = _edge_pad(x, axis, 1, 1)
+        fm = xp.narrow(axis, 0, n)
+        f0 = xp.narrow(axis, 1, n)
+        fp = xp.narrow(axis, 2, n)
+    else:
+        lo, hi = (int(v) for v in face)
+        i = torch.arange(n, device=x.device)
+        fm = x.index_select(axis, torch.where(i <= lo, i, (i - 1).clamp_(min=0)))
+        f0 = x
+        fp = x.index_select(axis,
+                            torch.where(i >= hi, i, (i + 1).clamp_(max=n - 1)))
     h = float(spacing)
     if order == 1:
         return (fp - fm) * (1.0 / (2.0 * h))
@@ -57,19 +71,22 @@ def derivative(
 
 
 def gradient_magnitude(
-    x: torch.Tensor, spacing: Sequence[float] = (1.0, 1.0, 1.0)
+    x: torch.Tensor, spacing: Sequence[float] = (1.0, 1.0, 1.0),
+    faces=(None, None, None),
 ) -> torch.Tensor:
     """sqrt(sum_d (df/dx_d)^2) with central differences
-    (reference ImageToEmphysemaFeaturesFilter.hxx:27-28)."""
+    (reference ImageToEmphysemaFeaturesFilter.hxx:27-28). `faces`: per axis,
+    the `face` of derivative."""
     acc = None
     for d in range(3):
-        g = derivative(x, d, 1, spacing[d])
+        g = derivative(x, d, 1, spacing[d], faces[d])
         acc = g * g if acc is None else acc + g * g
     return torch.sqrt(acc)
 
 
 def hessian(
-    x: torch.Tensor, spacing: Sequence[float] = (1.0, 1.0, 1.0)
+    x: torch.Tensor, spacing: Sequence[float] = (1.0, 1.0, 1.0),
+    faces=(None, None, None),
 ) -> torch.Tensor:
     """6-channel Hessian, channel order [Dxx, Dxy, Dxz, Dyy, Dyz, Dzz].
 
@@ -78,16 +95,20 @@ def hessian(
     pass applying its own ZeroFluxNeumann boundary — the reference wiring
     (Hessian3DImageFilter.hxx:31-59).
 
+    `faces`: per axis, the `face` of derivative (each pass of a cascade
+    clamps at its own axis's faces).
+
     Returns a tensor (..., 6) stacked on a new trailing axis.
     """
-    dxx = derivative(x, 0, 2, spacing[0])
-    dyy = derivative(x, 1, 2, spacing[1])
-    dzz = derivative(x, 2, 2, spacing[2])
-    dx = derivative(x, 0, 1, spacing[0])
-    dy = derivative(x, 1, 1, spacing[1])
-    dxy = derivative(dx, 1, 1, spacing[1])
-    dxz = derivative(dx, 2, 1, spacing[2])
-    dyz = derivative(dy, 2, 1, spacing[2])
+    fx, fy, fz = faces
+    dxx = derivative(x, 0, 2, spacing[0], fx)
+    dyy = derivative(x, 1, 2, spacing[1], fy)
+    dzz = derivative(x, 2, 2, spacing[2], fz)
+    dx = derivative(x, 0, 1, spacing[0], fx)
+    dy = derivative(x, 1, 1, spacing[1], fy)
+    dxy = derivative(dx, 1, 1, spacing[1], fy)
+    dxz = derivative(dx, 2, 1, spacing[2], fz)
+    dyz = derivative(dy, 2, 1, spacing[2], fz)
     return torch.stack([dxx, dxy, dxz, dyy, dyz, dzz], dim=-1)
 
 
@@ -148,6 +169,20 @@ def gaussian_smooth_axis(
     acc = taps[0] * xp.narrow(axis, 0, n)
     for k in range(1, len(taps)):
         acc = acc + taps[k] * xp.narrow(axis, k, n)
+    return acc
+
+
+def convolve_valid_axis(
+    x_ext: torch.Tensor, axis: Axis, sigma_vox: float, radius: int
+) -> torch.Tensor:
+    """VALID Gaussian along `axis` of an already-extended tensor
+    ((..., n + 2*radius, ...) -> (..., n, ...)): the tap-ordered sum of
+    gaussian_smooth_axis on a pad the caller supplied (a shard's halo)."""
+    taps = _gaussian_taps(float(sigma_vox), int(radius))
+    n = x_ext.shape[axis] - 2 * radius
+    acc = float(taps[0]) * x_ext.narrow(axis, 0, n)
+    for k in range(1, len(taps)):
+        acc = acc + float(taps[k]) * x_ext.narrow(axis, k, n)
     return acc
 
 

@@ -200,11 +200,62 @@ def make_bag_device(
     return bag
 
 
-def make_bag_sharded(*args, **kwargs) -> np.ndarray:
-    """make_bag over a block-sharded mesh: not yet ported (the sharded
-    feature pass waits for ife_tpu_torch's parallel/ package)."""
-    raise NotImplementedError(
-        "make_bag_sharded is not yet ported to ife_tpu_torch")
+def make_bag_sharded(
+    image: np.ndarray,
+    mask: np.ndarray,
+    sigmas: Sequence[float],
+    hist_edges: Sequence[np.ndarray],
+    rois: Sequence[ROI],
+    mesh,
+    spacing: Sequence[float] = (1.0, 1.0, 1.0),
+    dtype=torch.float32,
+) -> np.ndarray:
+    """make_bag over a block mesh (counterpart of ife_tpu's
+    make_bag_sharded): feature volumes never touch the host. Per scale the
+    8-channel pass runs sharded (parallel/features.py); each channel is then
+    gathered on the device (a copy within one process, an all_gather across
+    processes) and the per-ROI histograms are taken from it by
+    roi_feature_histograms_device, as make_bag_device takes them; only the
+    (n_rois, 8, hist_size) frequency block is fetched. A box may straddle
+    blocks, so binning block by block would need one launch per box and
+    block; the gathered channel needs one per size class. Same layout and
+    bin semantics as make_bag; every process returns the same bag.
+    """
+    from ife_tpu_torch.parallel.features import sharded_features8
+    from ife_tpu_torch.parallel.mesh import (
+        crop_from_mesh, gather_volume, pad_to_mesh, shard_volume,
+    )
+
+    classes = _size_classes(rois)
+    hist_size = _check_hist_spec(hist_edges, NUM_FEATURES * len(sigmas))
+    mask_np = np.clip(np.asarray(mask), 0, 1)
+    if mask_np.dtype.kind in "bu":
+        mask_np = mask_np.astype(np.uint8)
+
+    # pad to the mesh grid; ROIs index the original region only, which the
+    # gathered channels are cropped back to
+    img_p, orig = pad_to_mesh(np.asarray(image, np.float32), mesh)
+    msk_p, _ = pad_to_mesh(mask_np, mesh)
+    img_s = shard_volume(img_p, mesh).map(lambda b: b.to(dtype))
+    msk_s = shard_volume(msk_p, mesh)
+    msk = torch.from_numpy(mask_np).to(mesh.device)
+    starts_np = np.asarray([r.index for r in rois], np.int64).reshape(-1, 3)
+    bag = np.zeros((len(rois), hist_size * NUM_FEATURES * len(sigmas)),
+                   dtype=np.float64)
+
+    for i, sigma in enumerate(sigmas):
+        feats = tuple(
+            crop_from_mesh(gather_volume(c), orig)
+            for c in sharded_features8(img_s, msk_s, float(sigma), mesh,
+                                       tuple(spacing), stack=False))
+        edges = _round_edges_f32(_edges_block(hist_edges, i), feats[0].dtype)
+        col0 = i * NUM_FEATURES * hist_size
+        for size, idxs in classes:
+            freqs = roi_feature_histograms_device(
+                feats, msk, starts_np[idxs], edges, size)
+            bag[idxs, col0 : col0 + NUM_FEATURES * hist_size] = (
+                freqs.cpu().numpy().astype(np.float64).reshape(len(idxs), -1))
+    return bag
 
 
 def make_bag_intensity(

@@ -336,10 +336,16 @@ def test_multiscale_wrappers_reject_what_the_kernels_do_not_take(cuda):
         K.fused_features8_sweep_multi(img, mask, (2.4, 4.8), (0.78, 0.78, 1.0))
     with pytest.raises(ValueError, match="CUDA"):
         K.fused_features8_sweep_multi(img, mask.cpu(), (1.0,))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        K.fused_features8_sweep_multi(img, mask, (1.0,), clamps=[0, 12, 0, 11])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        K.fused_features8_post(img, mask, pre_padded=True)
+    with pytest.raises(ValueError, match="clamps"):
+        K.fused_features8_sweep_multi(img, mask, (1.0,), clamps=[0, 12, 0])
+    with pytest.raises(ValueError, match="host integers"):
+        K.fused_features8_sweep(img, mask, 1.0,
+                                clamps=torch.tensor([0, 12, 0, 11], device="cuda"))
+    with pytest.raises(ValueError, match="shape"):
+        K.fused_features8_post(img, mask, pre_padded=True)  # m is not the core's
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        K.fused_features8_post_stream(img, mask, pre_padded=True,
+                                      x_halo=(img[:1], img[:1]))
     with pytest.raises(ValueError, match="shape"):
         K.fused_features8_post(img, mask[:, :-1].contiguous())
     with pytest.raises(ValueError, match="float32"):
@@ -465,3 +471,107 @@ def test_histogram_wrappers_reject_what_the_kernel_does_not_take(cuda):
                           torch.stack([e, e]))
     with pytest.raises(ValueError, match="non-decreasing"):
         K.histogram_counts_multi([v], torch.tensor([1.0, 0.0]))
+
+
+# ---------------------------------------------------------------------------
+# the windowed kernels, the shard modes and the sharded path
+# ---------------------------------------------------------------------------
+
+def _stacked(chans):
+    return chans if isinstance(chans, torch.Tensor) else torch.stack(list(chans))
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(5, 40, 33), (40, 9, 33)])
+@pytest.mark.parametrize("sigma", [0.6, 1.2])
+def test_tap_and_xs_equal_their_twins(cuda, shape, sigma):
+    img, mask = _inputs(shape, cuda)
+    labels = mask * 2.0  # clamped in the kernels
+    assert _same(K.fused_features8_tap(img, labels, sigma, SPACING),
+                 _stacked(K.features8_tap_plain(img, labels, sigma, SPACING)))
+    assert _same(K.fused_features8_xs(img, labels, sigma, SPACING),
+                 _stacked(K.features8_xs_plain(img, labels, sigma, SPACING)))
+    # xs runs the sweep's passes in the sweep's order
+    assert _same(K.fused_features8_xs(img, labels, sigma, SPACING),
+                 K.fused_features8_sweep(img, labels, sigma, SPACING))
+
+
+def test_tap_and_xs_raise_beyond_their_windows(cuda):
+    img, mask = _inputs((13, 12, 11), cuda)
+    with pytest.raises(ValueError, match="tap_fits"):
+        K.fused_features8_tap(img, mask, 2.4)       # r = 11 > 8
+    with pytest.raises(ValueError, match="xs_fits"):
+        K.fused_features8_xs(img, mask, 7.0)        # rx = 32 > 29
+    assert K.fused_features8_xs(img, mask, 4.8, (0.78, 0.78, 1.0)).shape == (8, 13, 12, 11)
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(5, 40, 33)])
+def test_shard_modes_equal_their_twins(cuda, shape):
+    img, mask = _inputs(shape, cuda)
+    X, Y, _ = shape
+    before = dict(K.LAUNCHES)
+    cl = [2, K.NO_FACE, -K.NO_FACE, Y - 3]
+    assert _same(K.fused_features8_sweep(img, mask, 1.0, SPACING, clamps=cl),
+                 _stacked(K.features8_sweep_plain(img, mask, 1.0, SPACING,
+                                                  clamps=cl)))
+    got = K.fused_features8_sweep_multi(img, mask, (0.6, 1.0), SPACING, clamps=cl)
+    want = K.features8_sweep_multi_plain(img, mask, (0.6, 1.0), SPACING, clamps=cl)
+    assert _same(got, torch.stack([_stacked(w) for w in want]))
+    whole = [0, X - 1, 0, Y - 1]
+    assert _same(K.fused_features8_sweep(img, mask, 1.0, SPACING, clamps=whole),
+                 K.fused_features8_sweep(img, mask, 1.0, SPACING))
+    s = torch.nan_to_num(K.fused_normalized_conv_sweep(img, mask, 1.0, SPACING))
+    core, mc = s[1:-1].contiguous(), mask[1:-1].contiguous()
+    halo = (s[:1].contiguous(), s[-1:].contiguous())
+    got = K.fused_features8_post_stream(core, mc, SPACING, x_halo=halo)
+    assert _same(got, _stacked(K.features8_post_plain(core, mc, SPACING,
+                                                      x_halo=halo)))
+    assert _same(got, K.fused_features8_post_stream(s, mask, SPACING)[:, 1:-1])
+    mcc = mask[1:-1, 1:-1].contiguous()
+    want = _stacked(K.features8_post_plain(s, mcc, SPACING, pre_padded=True))
+    assert _same(K.fused_features8_post_stream(s, mcc, SPACING, pre_padded=True),
+                 want)
+    assert _same(K.fused_features8_post(s, mcc, SPACING, pre_padded=True), want)
+    ih = (img[:1].contiguous(), img[-1:].contiguous())
+    ic = img[1:-1].contiguous()
+    assert _same(K.fused_hessian_eig_stream(ic, SPACING, x_halo=ih),
+                 _stacked(K.hessian_eig_plain(ic, SPACING, x_halo=ih)))
+    assert _same(K.fused_hessian_eig(img, SPACING, pre_padded=True),
+                 K.fused_hessian_eig(img, SPACING)[:, 1:-1, 1:-1])
+    for name in ("features8_sweep_clamps", "features8_sweep_multi_clamps",
+                 "features8_post_x_halo", "features8_post_pre_padded",
+                 "features8_post_windowed_pre_padded", "hessian_eig_x_halo",
+                 "hessian_eig_pre_padded"):
+        assert K.LAUNCHES[name] > before[name], name
+
+
+@pytest.mark.parametrize("axes", [("x",), ("x", "y")])
+def test_sharded_path_equals_the_single_device_kernels(cuda, axes):
+    from ife_tpu_torch import parallel as P
+    from ife_tpu_torch.ops.features import (
+        features8_dispatch_branch, fused_features8,
+    )
+
+    img, mask = _inputs((48, 40, 33), cuda)
+    mesh = P.make_mesh(4, axes, device=cuda)
+    xi, mi = P.shard_volume(img, mesh), P.shard_volume(mask, mesh)
+    post = "features8_post_x_halo" if axes == ("x",) else "features8_post_pre_padded"
+    for sigma in (0.6, 1.2, 4.8):
+        K.reset_launches()
+        got = P.gather_volume(P.sharded_features8(xi, mi, sigma, mesh)).movedim(-1, 0)
+        counts = {k: v for k, v in K.LAUNCHES.items() if v}
+        if features8_dispatch_branch(sigma, (1, 1, 1), None) == "sweep":
+            assert counts == {"features8_sweep_clamps": 4}
+        else:
+            assert counts == {"normalized_conv": 4, post: 4}
+        assert _same(got, fused_features8(img, mask, sigma))
+    K.reset_launches()
+    got = P.gather_volume(P.sharded_hessian_eig(xi, mesh, SPACING)).movedim(-1, 0)
+    assert K.LAUNCHES["hessian_eig_x_halo" if axes == ("x",)
+                      else "hessian_eig_pre_padded"] == 4
+    assert _same(got, K.fused_hessian_eig(img, SPACING))
+    edges = torch.linspace(-900, -100, 7, dtype=torch.float64)
+    from ife_tpu_torch.stats.histogram import histogram_counts
+
+    assert torch.equal(
+        P.sharded_masked_histogram(xi, mi, edges, mesh),
+        histogram_counts(img, edges, (mask != 0).to(torch.int32)))

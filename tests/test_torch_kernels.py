@@ -213,7 +213,8 @@ def test_build_is_keyed_by_the_sources():
     assert path.parent.parent == _build.BUILD_ROOT
     assert {p.name for p in _build._sources()[0]} == {
         "hessian_eig.cu", "normalized_conv.cu", "features8_post.cu",
-        "features8_sweep.cu", "features8_ys_multi.cu", "histogram.cu"}
+        "features8_sweep.cu", "features8_ys_multi.cu", "histogram.cu",
+        "features8_tap.cu"}
     assert {p.name for p in _build._sources()[1]} == {
         "features8_tail.cuh", "fir.cuh", "s_ring.cuh"}
     assert set(_build.LAUNCHES) == {"hessian_eig", "normalized_conv",
@@ -223,11 +224,22 @@ def test_build_is_keyed_by_the_sources():
                                     "normalized_conv_tiled",
                                     "features8_post_windowed",
                                     "features8_ys_multi",
-                                    "features8_sweep_multi"}
+                                    "features8_sweep_multi",
+                                    "features8_tap", "features8_xs",
+                                    "features8_sweep_clamps",
+                                    "features8_sweep_multi_clamps",
+                                    "hessian_eig_x_halo",
+                                    "hessian_eig_pre_padded",
+                                    "features8_post_x_halo",
+                                    "features8_post_pre_padded",
+                                    "features8_post_windowed_pre_padded"}
     # every C entry the wrappers launch has a declared signature; the tiled
-    # normalized convolution counts its launches of ife_normalized_conv
+    # normalized convolution and the shard modes count launches of another
+    # name's entry (COUNTED_AS)
     assert {f"ife_{k}" for k in _build.LAUNCHES
-            if k != "normalized_conv_tiled"} == set(_build._SIGNATURES)
+            if k not in _build.COUNTED_AS} == set(_build._SIGNATURES)
+    assert {f"ife_{k}" for k in _build.COUNTED_AS.values()} <= set(
+        _build._SIGNATURES)
 
 
 def test_build_runs_the_compiles_together_and_reports_a_failure():

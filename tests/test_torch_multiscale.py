@@ -262,8 +262,16 @@ def test_sweep_multi_fits_and_clamps():
     assert not K.sweep_multi_fits((), sp)
     assert not K.sweep_multi_fits((0.6,), (1.0, 0.004, 1.0))  # ry > 128
     x = torch.zeros((4, 4, 4), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        K.fused_features8_sweep_multi(x, x, (1.0,), clamps=[0, 3, 0, 3])
+    # the array's own faces are the default clamps
+    img, mask = _inputs((9, 8, 7), 3)
+    a = K.fused_features8_sweep_multi(torch.from_numpy(img),
+                                      torch.from_numpy(mask), (1.0,), SPACING)
+    b = K.fused_features8_sweep_multi(torch.from_numpy(img),
+                                      torch.from_numpy(mask), (1.0,), SPACING,
+                                      clamps=[0, 8, 0, 7])
+    assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="clamps"):
+        K.fused_features8_sweep_multi(x, x, (1.0,), clamps=[0, 3, 0])
     with pytest.raises(ValueError, match="no scale"):
         K.fused_features8_sweep_multi(x, x, ())
 
@@ -312,8 +320,9 @@ def test_features8_post_forms_and_refusals():
     stream = K.fused_features8_post_stream(s, m, SPACING)
     assert len(parts) == 8
     assert all(torch.equal(p, c) for p, c in zip(parts, stream))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        K.fused_features8_post(s, m, SPACING, pre_padded=True)
+    # pre_padded: the block carries its boundary layer, the core comes out
+    core = K.fused_features8_post(s, m[1:-1, 1:-1], SPACING, pre_padded=True)
+    assert torch.equal(core, stream[:, 1:-1, 1:-1])
     with pytest.raises(ValueError, match="block"):
         K.fused_features8_post(s, m, SPACING, block=(0, 8))
 

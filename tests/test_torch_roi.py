@@ -189,7 +189,7 @@ def test_bag_checks_and_host_tools_equal_ife_tpu(scan):
     with pytest.raises(ValueError, match="same bin count"):
         TB.make_bag_device(img, mask, [1.0], [np.array([0.0])] * 7
                            + [np.array([0.0, 1.0])], rois, device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match="Number of histograms"):
         TB.make_bag_sharded(img, mask, [1.0], [], rois, None)
     assert TB._size_classes(rois) == JB._size_classes(rois)
     e = np.array([-700.0, -600.0, -500.0])

@@ -1,0 +1,137 @@
+"""ife_tpu_torch's fused_features8_tap and fused_features8_xs on the CPU:
+given CPU tensors each wrapper runs its plain twin, which is held against the
+Pallas kernel it replaces, run in interpret mode as tests/test_kernels.py
+runs it, on the cases of that file (a whole volume, a smoothing radius larger
+than the volume, prime extents, f32 accuracy).
+
+Tolerances: f64 twin against the f64 Pallas kernel <= 1e-9 of the channel's
+scale (both take the polynomial eigen path; the twin sums its taps in the CUDA
+kernel's order, the Pallas z pass from the centre tap outwards), eigenvalue
+channels as value-sorted triples; against the composed ops (ife_tpu's
+features8, trig eigen path) <= 1e-7, ife_tpu's own bound for these kernels;
+in f32 no worse than 2.5x the composed f32 ops' own distance from the f64
+truth (floor 1e-6), ife_tpu's bound for the tap kernel.
+
+The CUDA kernels themselves are tested on the card (tests/test_torch_gpu.py).
+"""
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from ife_tpu.core.volume import sphere_mask as j_sphere_mask
+from ife_tpu.core.volume import synthetic_ct as j_synthetic_ct
+from ife_tpu.kernels import fused as JF
+from ife_tpu.ops.features import features8 as j_features8
+from ife_tpu_torch import kernels as K
+from ife_tpu_torch.kernels import features8_tap as tap_mod
+
+torch.set_num_threads(1)
+
+SPACING = (0.7, 0.9, 1.2)
+KINDS = {"tap": (K.fused_features8_tap, JF.fused_features8_tap),
+         "xs": (K.fused_features8_xs, JF.fused_features8_xs)}
+# (shape, seed, sigma): a whole volume; a radius (17 voxels on the 0.7 axis)
+# larger than the volume; prime extents
+CASES = [((16, 16, 16), 5, 1.1), ((16, 16, 16), 6, 2.5), ((13, 11, 16), 7, 0.9)]
+
+
+def _inputs(shape, seed, dtype=jnp.float64):
+    img = np.array(j_synthetic_ct(shape, seed=seed, dtype=dtype).data)
+    mask = np.array(j_sphere_mask(shape, 0.45).data)
+    return img, mask
+
+
+def _errs(got, want):
+    """Per channel max|got - want| / max(max|want|, 1), channels last; the
+    eigenvalue channels compared as value-sorted triples."""
+    out = []
+    for c in range(8):
+        s = max(np.abs(want[..., c]).max(), 1.0)
+        if c in (2, 3, 4):
+            a = np.sort(got[..., 2:5], axis=-1)
+            b = np.sort(want[..., 2:5], axis=-1)
+            out.append(np.abs(a - b).max() / s)
+        else:
+            out.append(np.abs(got[..., c] - want[..., c]).max() / s)
+    return np.array(out)
+
+
+@pytest.mark.parametrize("kind", sorted(KINDS))
+@pytest.mark.parametrize("shape,seed,sigma", CASES)
+def test_twin_matches_pallas_interpret_f64(kind, shape, seed, sigma):
+    t_fn, j_fn = KINDS[kind]
+    img, mask = _inputs(shape, seed)
+    got = t_fn(torch.from_numpy(img), torch.from_numpy(mask), sigma, SPACING)
+    assert got.shape == (8,) + shape
+    assert bool(torch.isfinite(got).all())
+    got = got.movedim(0, -1).numpy()
+    assert np.all(got[mask == 0] == 0)
+    want = np.moveaxis(np.asarray(j_fn(jnp.asarray(img), jnp.asarray(mask),
+                                       sigma, SPACING, interpret=True)), 0, -1)
+    assert _errs(got, want).max() <= 1e-9
+    ops = np.asarray(j_features8(jnp.asarray(img), jnp.asarray(mask), sigma,
+                                 SPACING))
+    assert _errs(got, ops).max() <= 1e-7
+
+
+@pytest.mark.parametrize("kind", sorted(KINDS))
+def test_twin_f32_within_the_documented_budget(kind):
+    t_fn, _ = KINDS[kind]
+    img, mask = _inputs((16, 16, 16), 5, jnp.float32)
+    truth = np.asarray(j_features8(jnp.asarray(img, jnp.float64),
+                                   jnp.asarray(mask), 1.1, SPACING))
+    xla = np.asarray(j_features8(jnp.asarray(img), jnp.asarray(mask), 1.1,
+                                 SPACING)).astype(np.float64)
+    got = t_fn(torch.from_numpy(img), torch.from_numpy(mask), 1.1, SPACING)
+    assert got.dtype == torch.float32
+    got = got.movedim(0, -1).numpy().astype(np.float64)
+    e_got, e_xla = _errs(got, truth), _errs(xla, truth)
+    assert np.all(e_got < np.maximum(2.5 * e_xla, 1e-6)), (e_got, e_xla)
+
+
+@pytest.mark.parametrize("kind", sorted(KINDS))
+def test_labels_are_clamped_and_channels_unstack(kind):
+    t_fn, _ = KINDS[kind]
+    img, mask = _inputs((9, 8, 7), 3)
+    x = torch.from_numpy(img)
+    stacked = t_fn(x, torch.from_numpy(mask), 0.8, SPACING)
+    parts = t_fn(x, torch.from_numpy(mask * 3), 0.8, SPACING, stack=False)
+    assert len(parts) == 8
+    assert all(torch.equal(p, s) for p, s in zip(parts, stacked))
+
+
+def test_tap_smooths_x_y_z_and_xs_is_the_sweeps_twin():
+    # the twins differ only in the order of the three passes
+    img, mask = _inputs((10, 9, 8), 4)
+    x, m = torch.from_numpy(img), torch.from_numpy(mask)
+    assert K.features8_xs_plain is K.features8_sweep_plain
+    tap = torch.stack(K.features8_tap_plain(x, m, 1.0, SPACING))
+    xs = torch.stack(K.features8_xs_plain(x, m, 1.0, SPACING))
+    assert not torch.equal(tap, xs)
+    assert (tap - xs).abs().max() <= 1e-9 * max(float(xs.abs().max()), 1.0)
+
+
+def test_windows_fit_shared_memory_up_to_the_stated_radii():
+    unit = (1.0, 1.0, 1.0)
+    # tap: r <= 8 voxels on every axis
+    assert tap_mod.tap_smem_bytes(8, 8, 8) <= 227 * 1024 < tap_mod.tap_smem_bytes(9, 9, 9)
+    assert K.tap_fits(8 / 4.5, unit) and not K.tap_fits(8.5 / 4.5, unit)
+    assert K.tap_fits(0.6, (0.78, 0.78, 1.0)) and K.tap_fits(1.2, (0.78, 0.78, 1.0))
+    # xs: rx <= 29 voxels, whatever the y and z radii
+    assert tap_mod.xs_smem_bytes(29) <= 227 * 1024 < tap_mod.xs_smem_bytes(30)
+    assert K.xs_fits(29 / 4.5, unit) and not K.xs_fits(29.5 / 4.5, unit)
+    assert K.xs_fits(4.8, (0.78, 0.78, 1.0))
+    assert not K.xs_fits(1.0, (1.0, 0.004, 1.0))  # ry beyond the taps of a launch
+
+
+def test_other_devices_never_reach_the_twins(monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("plain twin called for a non-CPU tensor")
+
+    monkeypatch.setattr(tap_mod, "features8_tap_plain", refuse)
+    monkeypatch.setattr(tap_mod, "features8_xs_plain", refuse)
+    x = torch.empty((4, 4, 4), device="meta")
+    for fn in (K.fused_features8_tap, K.fused_features8_xs):
+        with pytest.raises(ValueError, match="no kernel or plain path"):
+            fn(x, x, 1.0)
