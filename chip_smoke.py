@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --ranks 4     # the sharded path, one rank per card
+    python3 chip_smoke.py --sweep-times [ROOT]   # the sweep family's 512^3
+                                        # times of the checkout under ROOT
 
 Run from the root of a checkout; needs one CUDA device of compute
 capability 9.0, nvcc and nvidia-smi (`--ranks N`: N of them on one host, and
@@ -32,7 +34,13 @@ failing phase exits non-zero:
               the two sweeps (the default clamps also against the call
               without), x_halo and pre_padded of the Hessian and post
               kernels (an edge-replicated halo also against the whole-volume
-              mode);
+              mode); every instantiation of the two sweeps with and without
+              clamps: the single sweep at each x radius 1 .. 10 with
+              ry != rx != rz, the multi-scale sweep at S = 1 .. 4 with mixed
+              radii in every class of its register budget, on small odd
+              shapes (X below a chunk, Y below a tile, Z = 1, radii beyond
+              the extent, X over a chunk) and under masks that leave planes,
+              tiles or the whole volume empty;
   4. main     four paths of user entry points, the launch counters reset
               before each and read after it. Features: the CLI
               (extract-features -s 0.6 2.4, hessian-features --fused) on a
@@ -66,7 +74,11 @@ failing phase exits non-zero:
               clamps and fused_features8_post pre_padded;
   5. full     512^3 f32: kernel and plain times (CUDA events, median of 5
               with spread) and kernel-vs-plain checks per kernel and sigma,
-              the features8 pass per sigma, the multi-scale kernels beside
+              the features8 pass per sigma, the sweep at sigma 0.6 / 1.2 /
+              1.7 (x radius 4 / 7 / 10) in turns with the staged
+              normalized_conv + post pair and under a mask of ones (its time
+              depends on the mask: it skips the planes and tails the mask
+              leaves empty), the multi-scale kernels beside
               the per-scale passes they replace, the four-scale stack at
               256^3 (bench.py's random 75% mask) and 512^3 both ways, the
               device's copy rate, and
@@ -149,7 +161,7 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                                 "ife_tpu/kernels/fused.py:1865"),
     "features8_ys_multi": ("ife_tpu_torch/csrc/features8_ys_multi.cu",
                            "ife_tpu/kernels/fused.py:1634"),
-    "features8_sweep_multi": ("ife_tpu_torch/csrc/features8_sweep.cu",
+    "features8_sweep_multi": ("ife_tpu_torch/csrc/features8_sweep_multi.cu",
                               "ife_tpu/kernels/fused.py:2055"),
     "features8_tap": ("ife_tpu_torch/csrc/features8_tap.cu",
                       "ife_tpu/kernels/fused.py:2268"),
@@ -158,8 +170,9 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     # the shard modes, counted apart from their kernels' whole-volume mode
     "features8_sweep_clamps": ("ife_tpu_torch/csrc/features8_sweep.cu",
                                "ife_tpu/kernels/fused.py:2169"),
-    "features8_sweep_multi_clamps": ("ife_tpu_torch/csrc/features8_sweep.cu",
-                                     "ife_tpu/kernels/fused.py:2064"),
+    "features8_sweep_multi_clamps": (
+        "ife_tpu_torch/csrc/features8_sweep_multi.cu",
+        "ife_tpu/kernels/fused.py:2064"),
     "hessian_eig_x_halo": ("ife_tpu_torch/csrc/hessian_eig.cu",
                            "ife_tpu/kernels/fused.py:1467"),
     "hessian_eig_pre_padded": ("ife_tpu_torch/csrc/hessian_eig.cu",
@@ -206,6 +219,13 @@ FULL_SIGMAS = {"smooth_xz": (2.4, 4.8), "normalized_conv_tiled": (4.8,),
 # multiscale_features8_fused)
 SWEEP_SIGMAS = (0.6, 1.2)
 YS_SIGMAS = (2.4, 4.8)
+# phase 3's scale sets of the multi-scale sweep, S = 1, 2, 3 with mixed
+# radii, that one launch takes at both SPACINGS (its register budget:
+# kernels.sweep_multi_max_scales)
+SWEEP_CHECK_SIGMAS = ((1.2,), (0.6, 1.0), (0.3, 0.45, 0.6))
+# the sigmas at which phase 5 times the sweep in turns with the staged
+# normalized_conv + post pair: x radius 4, 7 and 10 at 0.78 mm
+SWEEP_VS_STAGED = (0.6, 1.2, 1.7)
 # published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s and
 # float32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -333,10 +353,18 @@ def phase_build():
     path = _build.build()
     _build.lib()
     say("build", f"{time.perf_counter() - t0:.1f} s -> {path}")
+    # -Xptxas -v per kernel: its (mangled) name, registers, barriers, shared
+    # memory, and its own stack frame and spills
     log = path.parent / "build.log"
+    name = frame = None
     for line in log.read_text().splitlines() if log.is_file() else []:
-        if "registers" in line or "spill" in line or "stack frame" in line:
-            say("build", line.strip())
+        if "Compiling entry function" in line:
+            name, frame = line.split("'")[1], None
+        elif "bytes stack frame" in line and frame is None:
+            frame = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            say("build", f"{name[:72]}: {line.split(':', 1)[1].strip()}; {frame}")
+            name = None
 
 
 def _inputs(shape, seed, device):
@@ -423,7 +451,7 @@ def multi_kernel_checks(img, mask, sp, errs):
         rel, _ = multi_check(f"features8_ys_multi {sigmas}", kern(), plain())
         errs["features8_ys_multi"].append(rel)
     line.append("ys_multi S=1,2,3")
-    for sigmas in ((1.2,), SWEEP_SIGMAS, (0.6, 0.9, 1.2)):
+    for sigmas in SWEEP_CHECK_SIGMAS:
         if not K.sweep_multi_fits(sigmas, sp):
             raise PhaseError(f"sweep_multi does not take {sigmas} at {sp}")
         labels = mask * 3.0  # the sweep clamps the mask itself
@@ -524,6 +552,8 @@ def mode_kernel_checks(img, mask, sp, errs, sigma=1.2):
         errs[name].append(rel)
     labels = mask * 3.0  # the sweeps clamp the mask themselves
     sigmas = (0.6, sigma)
+    if not K.sweep_multi_fits(sigmas, sp):  # two scales take an rx <= 7
+        sigmas = SWEEP_CHECK_SIGMAS[1]
     cl = [min(2, X - 1), K.NO_FACE, -K.NO_FACE, max(Y - 3, 0)]
     rel, _ = multi_check(
         "features8_sweep_multi_clamps",
@@ -553,6 +583,90 @@ def mode_kernel_checks(img, mask, sp, errs, sigma=1.2):
     return ("tap, xs, clamps (single, multi), x_halo and pre_padded (hessian, "
             "post, windowed post); default clamps and face-row halos == the "
             "whole-volume mode")
+
+
+def sweep_radius_checks(errs):
+    """Every instantiation of the two sweeps against its twin, with and
+    without clamps: the single sweep at each x radius 1 .. SWEEP_MAX_RX
+    (an anisotropic spacing, so that ry != rx != rz), the multi-scale sweep
+    at S = 1 .. 4 with mixed radii in every class of its largest x radius,
+    on small odd shapes: thin ones (X below a chunk, Y below a tile, Z = 1,
+    radii beyond the extent) and one longer than a chunk; then masks that
+    leave whole planes, tiles or the volume empty (the sweeps skip the
+    planes of a chunk that hold no voxel inside)."""
+    from ife_tpu_torch import kernels as K
+    from ife_tpu_torch.ops.stencil import smooth_taps
+
+    dev = torch.device("cuda")
+    sp, sp_multi = (0.78, 0.6, 1.1), (0.78, 0.9, 1.0)
+    multi_sets = ((1.2,), (0.6, 1.2), (0.3, 0.45, 0.6), (0.2,) * 4, (1.7,),
+                  (0.34, 0.2, 0.3, 0.1))
+    for sigmas in multi_sets:
+        if not K.sweep_multi_fits(sigmas, sp_multi):
+            raise PhaseError(f"sweep_multi does not take {sigmas}")
+    radii = []
+    for shape in ((37, 29, 41), (5, 40, 33), (40, 9, 33), (23, 17, 1),
+                  (3, 2, 70), (140, 15, 35)):
+        img, mask = _inputs(shape, 0, dev)
+        labels = mask * 3.0  # the sweeps clamp the mask themselves
+        X, Y, _ = shape
+        cl = [min(2, X - 1), K.NO_FACE, -K.NO_FACE, max(Y - 3, 0)]
+        radii = []
+        for rx in range(1, K.SWEEP_MAX_RX + 1):
+            sigma = (rx - 0.5) * sp[0] / 4.5
+            r = tuple(smooth_taps(sigma, h)[1] for h in sp)
+            if r[0] != rx or not K.sweep_fits(sigma, sp):
+                raise PhaseError(f"sigma {sigma}: radii {r}, wanted rx {rx}")
+            radii.append(r)
+            for clamps, name in ((None, "features8_sweep"),
+                                 (cl, "features8_sweep_clamps")):
+                rel, _ = kernel_check(
+                    f"{name} {shape} radii {r}",
+                    K.fused_features8_sweep(img, labels, sigma, sp,
+                                            stack=False, clamps=clamps),
+                    K.features8_sweep_plain(img, labels, sigma, sp,
+                                            clamps=clamps))
+                errs[name].append(rel)
+        for sigmas in multi_sets:
+            for clamps, name in ((None, "features8_sweep_multi"),
+                                 (cl, "features8_sweep_multi_clamps")):
+                rel, _ = multi_check(
+                    f"{name} {shape} {sigmas}",
+                    K.fused_features8_sweep_multi(img, labels, sigmas,
+                                                  sp_multi, stack=False,
+                                                  clamps=clamps),
+                    K.features8_sweep_multi_plain(img, labels, sigmas,
+                                                  sp_multi, clamps=clamps))
+                errs[name].append(rel)
+        torch.cuda.synchronize()
+    say("kernels", f"sweep at radii {radii} and sweep_multi at {multi_sets}, "
+        "with and without clamps, on (37,29,41), (5,40,33), (40,9,33), "
+        "(23,17,1), (3,2,70), (140,15,35): bit-equal to the twins")
+    shape = (70, 40, 45)
+    img, mask = _inputs(shape, 0, dev)
+    x_half = (torch.arange(shape[0], device=dev) > 30).float()[:, None, None]
+    corner = torch.zeros_like(mask)
+    corner[-1, -1, -1] = 2.0
+    origin = torch.zeros_like(mask)
+    origin[0, 0, 0] = 1.0
+    masks = {"empty": mask * 0, "half of x": (mask * x_half).contiguous(),
+             "the last voxel": corner, "the first voxel": origin,
+             "ones": torch.ones_like(mask)}
+    for label, m in masks.items():
+        for sigma in (0.3, 1.0):
+            rel, _ = kernel_check(
+                f"features8_sweep mask {label} s={sigma}",
+                K.fused_features8_sweep(img, m, sigma, sp, stack=False),
+                K.features8_sweep_plain(img, m, sigma, sp))
+            errs["features8_sweep"].append(rel)
+        rel, _ = multi_check(
+            f"features8_sweep_multi mask {label}",
+            K.fused_features8_sweep_multi(img, m, (0.3, 0.6), sp, stack=False),
+            K.features8_sweep_multi_plain(img, m, (0.3, 0.6), sp))
+        errs["features8_sweep_multi"].append(rel)
+    torch.cuda.synchronize()
+    say("kernels", f"{shape} sweep and sweep_multi under masks "
+        f"{tuple(masks)}: bit-equal to the twins")
 
 
 def phase_kernels(errs):
@@ -598,6 +712,7 @@ def phase_kernels(errs):
         torch.cuda.synchronize()
         say("kernels", f"{shape} tap, xs and the shard modes at sigma 0.6 and "
             "1.2: bit-equal to the twins")
+    sweep_radius_checks(errs)
 
 
 def hist_edges(chans, E):
@@ -1321,6 +1436,62 @@ def phase_full(img, mask, errs, results):
     print(card_line(), flush=True)
 
 
+def phase_full_sweep(img, mask, errs):
+    """The sweep in turns with the staged normalized_conv + post pair at the
+    same sigma (sweep, staged, staged, sweep), at x radius 4, 7 and 10; then
+    the sweep under a mask of ones, where it skips no plane and no tail."""
+    from ife_tpu_torch import kernels as K
+
+    sp = FULL_SPACING
+    mf = mask.clamp(0, 1)
+
+    def staged(sigma):
+        return K.fused_features8_post_stream(
+            K.fused_normalized_conv_sweep(img, mf, sigma, sp), mf, sp)
+
+    for sigma in SWEEP_VS_STAGED:
+        if not K.sweep_fits(sigma, sp):
+            raise PhaseError(f"the sweep does not take sigma {sigma}")
+        rel, _ = kernel_check(
+            f"features8_sweep 512^3 s={sigma}",
+            K.fused_features8_sweep(img, mask, sigma, sp, stack=False),
+            K.features8_sweep_plain(img, mask, sigma, sp))
+        errs["features8_sweep"].append(rel)
+        torch.cuda.empty_cache()
+        turns = []
+        for label, fn in (("features8_sweep", K.fused_features8_sweep),
+                          ("normalized_conv + post", None)) * 2:
+            turns.append(timed(
+                f"s={sigma} {label} kernel{'s' if fn is None else ''}, "
+                f"turn {len(turns) + 1}",
+                (lambda: staged(sigma)) if fn is None
+                else (lambda: fn(img, mask, sigma, sp))))
+        far, _ = feature_errors(
+            K.fused_features8_sweep(img, mask, sigma, sp).unbind(0),
+            staged(sigma).unbind(0), (2, 3, 4))
+        say("full", f"s={sigma}: sweep {(turns[0] + turns[2]) / 2:.3f} ms "
+            f"against the staged pair {(turns[1] + turns[3]) / 2:.3f} ms "
+            f"(bit-equal to its twin; {far:.2e} from the staged pair, "
+            "x-y-z against y-z-x)")
+        torch.cuda.empty_cache()
+    ones = torch.ones_like(mask)
+    rel, _ = kernel_check(
+        "features8_sweep 512^3, a mask of ones",
+        K.fused_features8_sweep(img, ones, 1.2, sp, stack=False),
+        K.features8_sweep_plain(img, ones, 1.2, sp))
+    errs["features8_sweep"].append(rel)
+    torch.cuda.empty_cache()
+    dense = timed("s=1.2 features8_sweep kernel, a mask of ones",
+                  lambda: K.fused_features8_sweep(img, ones, 1.2, sp))
+    sphere = timed("s=1.2 features8_sweep kernel, the sphere mask",
+                   lambda: K.fused_features8_sweep(img, mask, 1.2, sp))
+    say("full", f"s=1.2 sweep: {dense:.3f} ms under a mask of ones against "
+        f"{sphere:.3f} ms under the sphere mask "
+        f"({float(mf.mean()):.1%} inside): the planes and tails the mask "
+        "leaves empty are skipped")
+    print(card_line(), flush=True)
+
+
 def phase_full_multi(img, mask, errs, results):
     """The multi-scale kernels at 512^3 beside what they replace, the tiled
     normalized convolution beside the untiled one, and the four-scale stack
@@ -1828,12 +1999,65 @@ def phase_ranks(world):
     print(card_line(), flush=True)
 
 
+def sweep_times(label):
+    """`--sweep-times [ROOT]`: one JSON line of 512^3 times (median, min, max
+    of 5, ms) of the sweep family of the ife_tpu_torch package on sys.path:
+    the sweep at sigma 0.6 / 1.2 / 1.7, with clamps and under a mask of ones,
+    sweep_multi, the staged pair, xs_stream, ys_multi, tap and xs. Run it on
+    two checkouts in turns to compare them within one call on one card."""
+    from ife_tpu_torch import kernels as K
+
+    if not torch.cuda.is_available():
+        raise PhaseError("torch.cuda.is_available() is false")
+    sp = FULL_SPACING
+    img, mask = _inputs(FULL, 2, "cuda")
+    Y = FULL[1]
+
+    def ms(fn):
+        return [round(t, 3) for t in cuda_ms(fn)]
+
+    res = {"label": label, "card": card_line()}
+    for s in SWEEP_VS_STAGED:
+        res[f"sweep {s}"] = ms(lambda: K.fused_features8_sweep(img, mask, s, sp))
+    res["sweep 1.2 clamps"] = ms(lambda: K.fused_features8_sweep(
+        img, mask, 1.2, sp, clamps=[2, K.NO_FACE, -K.NO_FACE, Y - 3]))
+    ones = torch.ones_like(mask)
+    res["sweep 1.2 mask of ones"] = ms(
+        lambda: K.fused_features8_sweep(img, ones, 1.2, sp))
+    del ones
+    res[f"sweep_multi {SWEEP_SIGMAS}"] = ms(
+        lambda: K.fused_features8_sweep_multi(img, mask, SWEEP_SIGMAS, sp))
+    mf = mask.clamp(0, 1)
+    for s in SWEEP_VS_STAGED:
+        res[f"nc+post {s}"] = ms(lambda: K.fused_features8_post_stream(
+            K.fused_normalized_conv_sweep(img, mf, s, sp), mf, sp))
+    num, den = K.fused_smooth_yz(img, mask, 2.4, sp)
+    res["xs_stream 2.4"] = ms(
+        lambda: K.fused_features8_xs_stream(num, den, mask, 2.4, sp))
+    del num, den
+    kern, _ = ys_multi_pair(img, mask, YS_SIGMAS, sp)
+    res[f"ys_multi {YS_SIGMAS}"] = ms(kern)
+    del kern
+    res["tap 1.2"] = ms(lambda: K.fused_features8_tap(img, mask, 1.2, sp))
+    res["xs 1.2"] = ms(lambda: K.fused_features8_xs(img, mask, 1.2, sp))
+    print(json.dumps(res), flush=True)
+
+
 def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "ife_tpu_torch")):
         print("chip_smoke: run it from a checkout of the repo "
               "(ife_tpu_torch/ not found beside it)", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--sweep-times"]:
+        other = os.path.abspath(sys.argv[2]) if len(sys.argv) > 2 else root
+        sys.path.insert(0, other)
+        try:
+            sweep_times(other)
+        except PhaseError as e:
+            print(f"chip_smoke: --sweep-times failed: {e}", file=sys.stderr)
+            return 1
+        return 0
     sys.path.insert(0, root)
 
     if sys.argv[1:2] in (["--ranks"], ["--rank-worker"]):
@@ -1877,6 +2101,7 @@ def main() -> int:
         phase = "full"
         results = {}
         phase_full(img, mask, errs, results)
+        phase_full_sweep(img, mask, errs)
         phase_full_multi(img, mask, errs, results)
         phase_full_modes(img, mask, errs, results)
         hist_work = phase_full_hist(img, mask, errs, results)

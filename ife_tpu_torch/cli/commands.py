@@ -3,8 +3,9 @@ ife_tpu/cli/commands.py): the feature subcommands, determine-bin-edges,
 make-bag and generate-rois.
 
 REGISTRY maps subcommand name -> (configure(parser), run(args), help). The
-compute runs on the first CUDA device when there is one, else on the CPU
-(IFE_PLATFORM=cpu forces the CPU); volumes are read and written on the host.
+compute runs on this process's CUDA device; IFE_PLATFORM=cpu asks for the
+CPU, and without it a host that has no card raises (parallel.mesh
+default_device). Volumes are read and written on the host.
 
 --sharded cuts the volume into a mesh of blocks (parallel/): --blocks of them
 in this process, or, with --coordinator / --num-processes / --process-id,

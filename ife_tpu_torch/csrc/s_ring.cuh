@@ -9,7 +9,9 @@
 // (clamp(y0 - 1 + i), clamp(z0 - 1 + j)). The tail's neighbours are looked up
 // at clamped indices in all three axes, so at a true face the phantom
 // neighbour is s at the face itself; a halo cell that stands for a position
-// outside the volume is never read.
+// outside the volume is never read. A voxel outside the mask gets its eight
+// zeros without the tail being run: every channel is masked by a select, so
+// the bits are the same, and a warp with no voxel inside skips the tail.
 #pragma once
 
 #include "features8_tail.cuh"
@@ -61,6 +63,15 @@ __device__ __forceinline__ void emit_features8_planes(
         const int y = y0 + idx / kTileZ;
         const int z = z0 + idx % kTileZ;
         if (y >= Y || z >= Z) continue;
+        const long long i = x * plane + (long long)y * Z + z;
+        const float m = __ldg(mask + i);
+        if ((kClampMask ? clamp_unit_mask(m) : m) == 0.0f) {
+            // outside the mask every channel is 0 whatever s is: the tail is
+            // not run (a warp with no voxel inside skips it altogether)
+#pragma unroll
+            for (int c = 0; c < 8; ++c) out[c * n + i] = 0.0f;
+            continue;
+        }
         // rows/columns of the clamped neighbours
         const int iy[3] = {lower_neighbour(y, y_lo) - y0 + 1, y - y0 + 1,
                            upper_neighbour(y, y_hi, Y) - y0 + 1};
@@ -78,14 +89,10 @@ __device__ __forceinline__ void emit_features8_planes(
                 }
         float gm, h[6], f[6];
         features8_tail(v, k, gm, h, f);
-        const long long i = x * plane + (long long)y * Z + z;
-        const float m = __ldg(mask + i);
-        const bool inside = (kClampMask ? clamp_unit_mask(m) : m) != 0.0f;
-        out[i] = inside ? v[1][1][1] : 0.0f;
-        out[n + i] = inside ? gm : 0.0f;
+        out[i] = v[1][1][1];
+        out[n + i] = gm;
 #pragma unroll
-        for (int c = 0; c < 6; ++c)
-            out[(c + 2) * n + i] = inside ? f[c] : 0.0f;
+        for (int c = 0; c < 6; ++c) out[(c + 2) * n + i] = f[c];
     }
 }
 

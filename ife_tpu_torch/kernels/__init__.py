@@ -38,6 +38,7 @@ from ife_tpu_torch.kernels.features8_post import (  # noqa: F401
 )
 from ife_tpu_torch.kernels.features8_sweep import (  # noqa: F401
     NO_FACE,
+    SWEEP_MAX_RX,
     features8_sweep_multi_plain,
     features8_sweep_plain,
     features8_xs_stream_plain,
@@ -46,6 +47,7 @@ from ife_tpu_torch.kernels.features8_sweep import (  # noqa: F401
     fused_features8_xs_stream,
     sweep_fits,
     sweep_multi_fits,
+    sweep_multi_max_scales,
     xs_stream_fits,
 )
 from ife_tpu_torch.kernels.features8_tap import (  # noqa: F401

@@ -1,18 +1,30 @@
-"""The whole features8 pass as one line sweep: the CUDA kernel
-``csrc/features8_sweep.cu`` in its two forms, and their plain PyTorch twins.
+"""The whole features8 pass as one line sweep: the CUDA kernels of
+``csrc/features8_sweep.cu`` and ``csrc/features8_sweep_multi.cu``, and their
+plain PyTorch twins.
 
 Replaces ife_tpu/kernels/fused.py:fused_features8_sweep (image + mask -> the
 8 channels: y, z and x smoothing passes, the no-epsilon divide, the tail)
 and fused_features8_xs_stream (y/z-smoothed numerator and denominator +
-mask -> the 8 channels: the x pass, the divide, the tail). Bound on the H100
-by shared-memory traffic and the x ring's size; HBM sees the inputs once and
-the 8 channels written once. See the source for the design.
+mask -> the 8 channels: the x pass, the divide, the tail).
+
+The sweep is bound on the H100 by the instructions its SMs issue, not by
+memory (HBM sees the inputs once and the 8 channels written once). Its
+design (csrc/sweep_passes.cuh) spends as few as it can per multiply-add: one
+thread per cell of the smoothed region keeps the x pass's 2rx+1 planes in a
+register queue (the x radius is a template parameter, rx <= SWEEP_MAX_RX; no
+shared-memory ring), the y pass makes four outputs per walk over shared
+memory, the next raw plane arrives by cp.async while this one is computed,
+and a plane costs two barriers. A block sweeps only the planes of its chunk
+on which its tile holds a voxel inside the mask and stores zeros elsewhere,
+so the time follows the mask's coverage. The xs-stream kernel keeps its x ring in
+shared memory and serves the x radii beyond.
 
 ``fused_features8_sweep_multi`` replaces
 ife_tpu/kernels/fused.py:fused_features8_sweep_multi: S scales of the sweep
-in one launch of a second kernel in the same source, which loads each raw
-plane once for all scales and keeps one x ring per scale. Each scale equals
-fused_features8_sweep to the bit.
+in one launch, the same threads running scale after scale on one raw plane
+with every scale's x queue in registers. Each scale equals
+fused_features8_sweep to the bit. What one launch takes is a register
+budget (SWEEP_MULTI_CLASSES).
 """
 from __future__ import annotations
 
@@ -22,30 +34,41 @@ from typing import Sequence
 import torch
 
 from ife_tpu_torch.kernels._build import (
-    MAX_SCALES, check_cuda_volume, launch, scale_taps_tensor, use_plain_twin,
+    check_cuda_volume, launch, scale_taps_tensor, use_plain_twin,
 )
 from ife_tpu_torch.kernels.features8_post import features8_post_plain
 from ife_tpu_torch.kernels.hessian_eig import stencil_reciprocals
 from ife_tpu_torch.kernels.normalized_conv import MAX_RADIUS, smooth_yz_plain
 from ife_tpu_torch.ops.stencil import gaussian_smooth_axis, smooth_taps
 
-# csrc/features8_sweep.cu: the s region a block owns (its (y, z) tile plus
-# a one-voxel halo), and the shared memory a block may take
+# csrc/sweep_passes.cuh: the s region a block owns (its (y, z) tile plus a
+# one-voxel halo), the shared memory a block may take, and the x radii the
+# sweep is instantiated for (its x queue lives in registers)
 _CELLS = (14 + 2) * (32 + 2)
 _SY, _SZ = 14 + 2, 32 + 2
 _MAX_SMEM = 227 * 1024
+SWEEP_MAX_RX = 10
+# csrc/features8_sweep_multi.cu, the launcher's list: (class of the largest x radius,
+# scales one launch takes in it); S * 2 * (2 * class + 1) <= 60 queue
+# registers a thread
+SWEEP_MULTI_CLASSES = ((2, 4), (4, 3), (7, 2), (10, 1))
+
+
+def _ybuf_stride(rz: int) -> int:
+    """csrc sweep_ybuf_stride: the padded row of the y pass buffer."""
+    return _SZ + (2 * rz + 31) // 32 * 32
 
 
 def sweep_smem_bytes(rx: int, ry: int, rz: int, smooth_yz: bool = True) -> int:
-    """Shared memory of one block (csrc sweep_smem_floats): the x ring of
-    2rx+1 numerator and denominator planes, three s planes and, when the
-    kernel smooths y and z itself, the extended input plane and its y
-    pass."""
-    floats = 2 * (2 * rx + 1) * _CELLS + 3 * _CELLS
-    if smooth_yz:
-        pz = _SZ + 2 * rz
-        floats += 2 * (_SY + 2 * ry) * pz + 2 * _SY * pz
-    return 4 * floats
+    """Shared memory of one block. The sweep (csrc sweep_smem_floats): two
+    buffers of the extended raw plane (c*f and c), the y pass of both, three
+    s planes; its x queue is in registers, so rx does not count. The
+    xs-stream kernel (smooth_yz=False, csrc xs_stream_smem_floats): the x
+    ring of 2rx+1 numerator and denominator planes and three s planes."""
+    if not smooth_yz:
+        return 4 * (2 * (2 * rx + 1) * _CELLS + 3 * _CELLS)
+    return 4 * (4 * (_SY + 2 * ry) * (_SZ + 2 * rz)
+                + 2 * _SY * _ybuf_stride(rz) + 3 * _CELLS)
 
 
 def _radii(sigma, spacing, truncate):
@@ -55,10 +78,12 @@ def _radii(sigma, spacing, truncate):
 
 def sweep_fits(sigma: float, spacing: Sequence[float],
                truncate: float = 4.5) -> bool:
-    """True when fused_features8_sweep takes this scale: every radius
+    """True when fused_features8_sweep takes this scale: the x radius among
+    those the kernel is instantiated for (rx <= SWEEP_MAX_RX), every radius
     within the taps a launch carries, the block within shared memory."""
     r = _radii(sigma, spacing, truncate)
-    return max(r) <= MAX_RADIUS and sweep_smem_bytes(*r) <= _MAX_SMEM
+    return (r[0] <= SWEEP_MAX_RX and max(r) <= MAX_RADIUS
+            and sweep_smem_bytes(*r) <= _MAX_SMEM)
 
 
 def xs_stream_fits(sigma: float, spacing: Sequence[float],
@@ -67,6 +92,13 @@ def xs_stream_fits(sigma: float, spacing: Sequence[float],
     within shared memory)."""
     rx = _radii(sigma, spacing, truncate)[0]
     return sweep_smem_bytes(rx, 0, 0, smooth_yz=False) <= _MAX_SMEM
+
+
+def _check_plane(name: str, shape) -> None:
+    """The sweeps keep a voxel's offset within its x plane in 32 bits."""
+    if shape[1] * shape[2] >= 2 ** 31:
+        raise ValueError(f"{name}: an x plane of {shape[1]} x {shape[2]} "
+                         f"voxels is beyond 2^31")
 
 
 def _c_taps(taps):
@@ -133,11 +165,12 @@ def fused_features8_sweep(image: torch.Tensor, mask: torch.Tensor,
         return torch.stack(feats, dim=0) if stack else feats
     check_cuda_volume("fused_features8_sweep image", image)
     check_cuda_volume("fused_features8_sweep mask", mask, shape=image.shape)
+    _check_plane("fused_features8_sweep", image.shape)
     if not sweep_fits(sigma, spacing, truncate):
         raise ValueError(
             f"fused_features8_sweep: sigma={sigma} at spacing "
-            f"{tuple(spacing)} needs more taps or shared memory than a "
-            f"launch has (sweep_fits)")
+            f"{tuple(spacing)} needs an x radius beyond {SWEEP_MAX_RX}, or "
+            f"more taps or shared memory than a launch has (sweep_fits)")
     (tx, ntx), (ty, nty), (tz, ntz) = (
         _c_taps(smooth_taps(float(sigma), float(h), float(truncate))[0])
         for h in spacing)
@@ -202,22 +235,37 @@ def fused_features8_xs_stream(num_yz: torch.Tensor, den_yz: torch.Tensor,
 def sweep_multi_smem_bytes(radii) -> int:
     """Shared memory of one block of the multi-scale sweep (csrc
     sweep_multi_smem_floats) for `radii`, one (rx, ry, rz) per scale: every
-    scale's taps, x ring and three s planes, then one extended raw plane at
-    the largest y and z radii and its y pass."""
-    floats = sum(2 * (rx + ry + rz) + 3 + 2 * (2 * rx + 1) * _CELLS
-                 + 3 * _CELLS for rx, ry, rz in radii)
-    pz = _SZ + 2 * max(r[2] for r in radii)
-    floats += 2 * (_SY + 2 * max(r[1] for r in radii)) * pz + 2 * _SY * pz
+    scale's taps, y pass buffer (at the largest z radius) and three s
+    planes, then two buffers of the raw plane at the largest y and z
+    radii."""
+    ry = max(r[1] for r in radii)
+    rz = max(r[2] for r in radii)
+    floats = sum(2 * sum(r) + 3 for r in radii)
+    floats += len(radii) * (2 * _SY * _ybuf_stride(rz) + 3 * _CELLS)
+    floats += 4 * (_SY + 2 * ry) * (_SZ + 2 * rz)
     return 4 * floats
+
+
+def sweep_multi_max_scales(rx_max: int) -> int:
+    """The scales one fused_features8_sweep_multi launch takes when the
+    largest x radius is `rx_max`: every scale's x queue, sized by the class
+    of rx_max, must stay in a thread's registers (0 beyond SWEEP_MAX_RX)."""
+    for cls, scales in SWEEP_MULTI_CLASSES:
+        if rx_max <= cls:
+            return scales
+    return 0
 
 
 def sweep_multi_fits(sigmas, spacing: Sequence[float],
                      truncate: float = 4.5) -> bool:
     """True when one fused_features8_sweep_multi launch takes this set of
-    scales: at most MAX_SCALES of them, every radius within the taps a launch
-    carries, the block within shared memory."""
+    scales: no more of them than the register budget of their largest x
+    radius allows (sweep_multi_max_scales), every radius within the taps a
+    launch carries, the block within shared memory."""
     radii = [_radii(s, spacing, truncate) for s in sigmas]
-    return (1 <= len(radii) <= MAX_SCALES
+    if not radii:
+        return False
+    return (len(radii) <= sweep_multi_max_scales(max(r[0] for r in radii))
             and max(max(r) for r in radii) <= MAX_RADIUS
             and sweep_multi_smem_bytes(radii) <= _MAX_SMEM)
 
@@ -263,11 +311,13 @@ def fused_features8_sweep_multi(image: torch.Tensor, mask: torch.Tensor,
     check_cuda_volume("fused_features8_sweep_multi image", image)
     check_cuda_volume("fused_features8_sweep_multi mask", mask,
                       shape=image.shape)
+    _check_plane("fused_features8_sweep_multi", image.shape)
     if not sweep_multi_fits(sigmas, spacing, truncate):
         raise ValueError(
             f"fused_features8_sweep_multi: sigmas={sigmas} at spacing "
-            f"{tuple(spacing)} need more scales, taps or shared memory than "
-            f"one launch has (sweep_multi_fits)")
+            f"{tuple(spacing)} need more scales for their largest x radius, "
+            f"more taps or more shared memory than one launch has "
+            f"(sweep_multi_fits)")
     S = len(sigmas)
     per = [[smooth_taps(s, float(h), float(truncate)) for h in spacing]
            for s in sigmas]

@@ -39,8 +39,9 @@ def distributed_init(
     Args default from env: IFE_COORDINATOR (host:port), IFE_NUM_PROCESSES,
     IFE_PROCESS_ID. Single-process, with no process group, if there is no
     coordinator. The backend follows the compute device (default_device:
-    IFE_PLATFORM=cpu forces the CPU and gloo), the rendezvous is a TCP store
-    on the coordinator's address.
+    NCCL on the card; IFE_PLATFORM=cpu asks for the CPU and gloo; a host
+    without a card raises), the rendezvous is a TCP store on the
+    coordinator's address.
     """
     coordinator = coordinator or os.environ.get("IFE_COORDINATOR")
     if coordinator is None:
@@ -50,8 +51,10 @@ def distributed_init(
     process_id = int(
         process_id if process_id is not None
         else os.environ.get("IFE_PROCESS_ID", "0"))
-    cuda = (os.environ.get("IFE_PLATFORM") != "cpu"
-            and torch.cuda.is_available())
+    # the process group does not exist yet, so default_device() sees rank 0:
+    # only its kind matters here (it raises on a host without a card unless
+    # IFE_PLATFORM=cpu, so a missing card never becomes gloo by itself)
+    cuda = default_device().type == "cuda"
     if cuda:
         torch.cuda.set_device(process_id % torch.cuda.device_count())
     dist.init_process_group(

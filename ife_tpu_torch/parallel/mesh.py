@@ -23,12 +23,20 @@ import torch
 import torch.distributed as dist
 
 
-def default_device() -> torch.device:
-    """This process's compute device: the CPU when IFE_PLATFORM=cpu or there
-    is no card, else the card of its rank (rank modulo the cards of the
-    host)."""
-    if os.environ.get("IFE_PLATFORM") == "cpu" or not torch.cuda.is_available():
+def default_device(device=None) -> torch.device:
+    """This process's compute device: `device` when the caller names one;
+    else the CPU only when IFE_PLATFORM=cpu asks for it, otherwise the card
+    of its rank (rank modulo the cards of the host). A host without a card
+    raises: nothing moves to the CPU by itself."""
+    if device is not None:
+        return torch.device(device)
+    if os.environ.get("IFE_PLATFORM") == "cpu":
         return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "ife_tpu_torch: no CUDA device is available "
+            "(torch.cuda.is_available() is false). Set IFE_PLATFORM=cpu, or "
+            "pass device=\"cpu\", to run on the CPU on purpose.")
     rank = dist.get_rank() if dist.is_initialized() else 0
     return torch.device("cuda", rank % torch.cuda.device_count())
 
@@ -73,7 +81,8 @@ def make_mesh(
     possible (a square decomposition has the least halo surface), the larger
     factor on x, as ife_tpu factors its devices. The blocks are dealt to the
     processes of torch.distributed when it is initialized, else all to this
-    one; `device` defaults to default_device()."""
+    one; `device` defaults to default_device(), which raises on a host
+    without a card unless IFE_PLATFORM=cpu."""
     rank, world = ((dist.get_rank(), dist.get_world_size())
                    if dist.is_initialized() else (0, 1))
     if n_blocks is None:
@@ -91,8 +100,8 @@ def make_mesh(
         dims = (n_blocks // a, a)
     else:
         raise ValueError("mesh must be 1D ('x',) or 2D ('x','y')")
-    dev = default_device() if device is None else torch.device(device)
-    return BlockMesh(dims, tuple(axis_names), dev, rank, world)
+    return BlockMesh(dims, tuple(axis_names), default_device(device), rank,
+                     world)
 
 
 def mesh_dims(mesh: BlockMesh) -> Tuple[int, int]:

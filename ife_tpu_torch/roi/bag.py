@@ -23,13 +23,8 @@ import torch
 
 from ife_tpu_torch.kernels.histogram import _edges_f32_round_down, histogram_boxes
 from ife_tpu_torch.ops.features import NUM_FEATURES, features8_auto_channels
+from ife_tpu_torch.parallel.mesh import default_device
 from ife_tpu_torch.roi.generate import ROI
-
-
-def _default_device(device) -> torch.device:
-    if device is not None:
-        return torch.device(device)
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 
 def _check_hist_spec(hist_edges: Sequence[np.ndarray], n_expected: int) -> int:
@@ -84,11 +79,12 @@ def make_bag(
     """Bag matrix (n_rois, histSize * 8 * n_scales), binned on the host.
 
     hist_edges is ordered scale-major: index i*8+k is scale i, feature k
-    (reference MakeBag.cxx:453). The feature pass runs on `device` (the
-    first CUDA device when there is one, else the CPU).
+    (reference MakeBag.cxx:453). The feature pass runs on `device` (None: this
+    process's card; the CPU only for device="cpu" or IFE_PLATFORM=cpu, and
+    a host without a card raises).
     """
     hist_size = _check_hist_spec(hist_edges, NUM_FEATURES * len(sigmas))
-    dev = _default_device(device)
+    dev = default_device(device)
     img, msk, mask_np = _device_inputs(image, mask, dtype, dev)
     bag = np.zeros((len(rois), hist_size * len(hist_edges)), dtype=np.float64)
     roi_masks = [mask_np[r.slices()] != 0 for r in rois]
@@ -183,7 +179,7 @@ def make_bag_device(
     histogram_boxes call per size class."""
     classes = _size_classes(rois)
     hist_size = _check_hist_spec(hist_edges, NUM_FEATURES * len(sigmas))
-    dev = _default_device(device)
+    dev = default_device(device)
     img, msk, _ = _device_inputs(image, mask, dtype, dev)
     starts_np = np.asarray([r.index for r in rois], np.int64).reshape(-1, 3)
     bag = np.zeros((len(rois), hist_size * NUM_FEATURES * len(sigmas)),

@@ -33,6 +33,16 @@ HESS_NAMES = ("Eigenvalue1", "Eigenvalue2", "Eigenvalue3",
               "LaplacianOfGaussian", "GaussianCurvature", "FrobeniusNorm")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def ask_for_the_cpu():
+    """The port runs on the card unless asked: these tests ask for the CPU
+    (the subprocesses inherit the variable)."""
+    mp = pytest.MonkeyPatch()
+    mp.setenv("IFE_PLATFORM", "cpu")
+    yield
+    mp.undo()
+
+
 @pytest.fixture(scope="module")
 def workdir(tmp_path_factory):
     d = tmp_path_factory.mktemp("torch_cli")

@@ -92,13 +92,92 @@ def test_features8_post_kernel_matches_plain(cuda, shape):
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("sigma", [0.6, 1.2, 2.4])
 def test_features8_sweep_kernel_matches_plain(cuda, shape, sigma):
-    # the sweep takes every radius its ring fits; the dispatcher sends it
-    # rx <= 10 only
+    # the sweep is instantiated for x radii up to 10 (its x queue lives in
+    # registers) and raises beyond: sigma 2.4 at 0.7 mm is rx 16
     img, mask = _inputs(shape, cuda)
+    if not K.sweep_fits(sigma, SPACING):
+        assert sigma == 2.4
+        with pytest.raises(ValueError, match="sweep_fits"):
+            K.fused_features8_sweep(img, mask, sigma, SPACING)
+        return
     got = K.fused_features8_sweep(img, mask, sigma, SPACING, stack=False)
     want = K.features8_sweep_plain(img, mask, sigma, SPACING)
     assert all(bool(torch.isfinite(g).all()) for g in got)
     assert all(_same(g, w) for g, w in zip(got, want))
+
+
+THIN = [(5, 40, 33), (40, 9, 33), (23, 17, 1), (3, 2, 70), (140, 15, 35)]
+ANISOTROPIC = (0.78, 0.6, 1.1)  # ry != rx != rz
+
+
+def _sigma_of(rx):
+    """A sigma whose x radius at 0.78 mm is rx (radius = ceil(4.5 s / h))."""
+    return (rx - 0.5) * ANISOTROPIC[0] / 4.5
+
+
+@pytest.mark.parametrize("shape", SHAPES + THIN)
+@pytest.mark.parametrize("rx", range(1, 11))
+def test_sweep_kernel_at_every_instantiated_radius(cuda, shape, rx):
+    # thin volumes: X below a chunk, Y below a tile, Z = 1, radii beyond the
+    # extent; (140, 15, 35): X over a chunk
+    img, mask = _inputs(shape, cuda)
+    labels = mask * 3.0
+    sigma = _sigma_of(rx)
+    assert K.sweep_fits(sigma, ANISOTROPIC)
+    X, Y, _ = shape
+    cl = [min(2, X - 1), K.NO_FACE, -K.NO_FACE, max(Y - 3, 0)]
+    for clamps in (None, cl):
+        got = K.fused_features8_sweep(img, labels, sigma, ANISOTROPIC,
+                                      stack=False, clamps=clamps)
+        want = K.features8_sweep_plain(img, labels, sigma, ANISOTROPIC,
+                                       clamps=clamps)
+        assert all(_same(g, w) for g, w in zip(got, want)), clamps
+
+
+@pytest.mark.parametrize("shape", THIN)
+@pytest.mark.parametrize("sigmas", [(1.2,), (0.6, 1.2), (0.3, 0.45, 0.6),
+                                    (0.2,) * 4, (1.7,), (0.34, 0.2, 0.3, 0.1)])
+def test_sweep_multi_kernel_in_every_class_on_thin_volumes(cuda, shape, sigmas):
+    sp = (0.78, 0.9, 1.0)
+    img, mask = _inputs(shape, cuda)
+    labels = mask * 3.0
+    assert K.sweep_multi_fits(sigmas, sp)
+    X, Y, _ = shape
+    cl = [min(2, X - 1), K.NO_FACE, -K.NO_FACE, max(Y - 3, 0)]
+    for clamps in (None, cl):
+        got = K.fused_features8_sweep_multi(img, labels, sigmas, sp,
+                                            stack=False, clamps=clamps)
+        want = K.features8_sweep_multi_plain(img, labels, sigmas, sp,
+                                             clamps=clamps)
+        assert all(_same(g, w) for g, w in zip(_flat(got), _flat(want)))
+
+
+@pytest.mark.parametrize("name", ["empty", "half of x", "the last voxel",
+                                  "the first voxel", "ones"])
+def test_sweeps_skip_what_the_mask_leaves_empty(cuda, name):
+    """The sweeps store zeros on the planes of a chunk whose tile holds no
+    voxel inside the mask, and run no tail outside it: the same bits as the
+    twin, which computes everything and selects."""
+    shape = (70, 40, 45)
+    img, mask = _inputs(shape, cuda)
+    m = torch.zeros_like(mask)
+    if name == "half of x":
+        m[31:] = mask[31:]
+    elif name == "the last voxel":
+        m[-1, -1, -1] = 2.0
+    elif name == "the first voxel":
+        m[0, 0, 0] = 1.0
+    elif name == "ones":
+        m += 1.0
+    for sigma in (0.3, 1.0):
+        got = K.fused_features8_sweep(img, m, sigma, ANISOTROPIC, stack=False)
+        want = K.features8_sweep_plain(img, m, sigma, ANISOTROPIC)
+        assert all(_same(g, w) for g, w in zip(got, want)), sigma
+        assert all(bool((g[m == 0] == 0).all()) for g in got)
+    got = K.fused_features8_sweep_multi(img, m, (0.3, 0.6), ANISOTROPIC,
+                                        stack=False)
+    want = K.features8_sweep_multi_plain(img, m, (0.3, 0.6), ANISOTROPIC)
+    assert all(_same(g, w) for g, w in zip(_flat(got), _flat(want)))
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -186,6 +265,8 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda):
         K.fused_features8_xs_stream(img, img, mask.double(), 1.0)
     with pytest.raises(ValueError, match="sweep_fits"):
         K.fused_features8_sweep(img, mask, 1.0, (1.0, 0.01, 1.0))
+    with pytest.raises(ValueError, match="sweep_fits"):  # rx 11: no instantiation
+        K.fused_features8_sweep(img, mask, 1.8, (0.78, 0.78, 1.0))
 
 
 # ---------------------------------------------------------------------------
@@ -228,7 +309,8 @@ def test_ys_multi_kernel_matches_plain(cuda, shape, sigmas):
 
 
 @pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("sigmas", [(1.2,), (0.6, 1.2), (0.6, 0.9, 1.2)])
+@pytest.mark.parametrize("sigmas", [(1.2,), (0.6, 1.0), (0.3, 0.45, 0.6),
+                                    (0.3, 0.25, 0.28, 0.2), (1.5,)])
 def test_sweep_multi_kernel_matches_plain_and_the_single_sweep(cuda, shape,
                                                                sigmas):
     img, mask = _inputs(shape, cuda)
@@ -334,6 +416,12 @@ def test_multiscale_wrappers_reject_what_the_kernels_do_not_take(cuda):
         K.fused_features8_ys_multi([img], [img], mask, (1.0,), (1.0, 0.01, 1.0))
     with pytest.raises(ValueError, match="sweep_multi_fits"):
         K.fused_features8_sweep_multi(img, mask, (2.4, 4.8), (0.78, 0.78, 1.0))
+    # the register budget: three scales with an x radius of 7, two with 10
+    with pytest.raises(ValueError, match="sweep_multi_fits"):
+        K.fused_features8_sweep_multi(img, mask, (0.6, 0.9, 1.2),
+                                      (0.78, 0.78, 1.0))
+    with pytest.raises(ValueError, match="sweep_multi_fits"):
+        K.fused_features8_sweep_multi(img, mask, (0.6, 1.7), (0.78, 0.78, 1.0))
     with pytest.raises(ValueError, match="CUDA"):
         K.fused_features8_sweep_multi(img, mask.cpu(), (1.0,))
     with pytest.raises(ValueError, match="clamps"):

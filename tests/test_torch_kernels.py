@@ -213,10 +213,10 @@ def test_build_is_keyed_by_the_sources():
     assert path.parent.parent == _build.BUILD_ROOT
     assert {p.name for p in _build._sources()[0]} == {
         "hessian_eig.cu", "normalized_conv.cu", "features8_post.cu",
-        "features8_sweep.cu", "features8_ys_multi.cu", "histogram.cu",
-        "features8_tap.cu"}
+        "features8_sweep.cu", "features8_sweep_multi.cu",
+        "features8_ys_multi.cu", "histogram.cu", "features8_tap.cu"}
     assert {p.name for p in _build._sources()[1]} == {
-        "features8_tail.cuh", "fir.cuh", "s_ring.cuh"}
+        "features8_tail.cuh", "fir.cuh", "s_ring.cuh", "sweep_passes.cuh"}
     assert set(_build.LAUNCHES) == {"hessian_eig", "normalized_conv",
                                     "features8_post", "features8_sweep",
                                     "features8_xs_stream", "smooth_yz",

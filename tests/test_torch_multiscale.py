@@ -255,12 +255,22 @@ def test_sweep_multi_is_the_single_sweep_per_scale():
 
 def test_sweep_multi_fits_and_clamps():
     sp = (0.78, 0.78, 1.0)
-    assert K.sweep_multi_fits((0.6, 1.2), sp)
+    assert K.sweep_multi_fits((0.6, 1.2), sp)        # rx 4, 7: two scales
     assert K.sweep_multi_fits((1.2,), sp) == K.sweep_fits(1.2, sp)
-    assert not K.sweep_multi_fits((2.4, 4.8), sp)   # the x rings: > 227 KB
-    assert not K.sweep_multi_fits((0.6,) * 9, sp)   # > 8 scales a launch
+    assert not K.sweep_multi_fits((2.4, 4.8), sp)   # rx 14, 28: no x queue
+    assert not K.sweep_multi_fits((0.6,) * 9, sp)   # the queues: registers
     assert not K.sweep_multi_fits((), sp)
     assert not K.sweep_multi_fits((0.6,), (1.0, 0.004, 1.0))  # ry > 128
+    # the register budget: the scales a launch takes fall with the largest
+    # x radius (x queues of 2 * class + 1 planes per scale)
+    assert [K.sweep_multi_max_scales(r) for r in (1, 2, 3, 4, 5, 7, 8, 10, 11)
+            ] == [4, 4, 3, 3, 2, 2, 1, 1, 0]
+    assert K.sweep_multi_fits((0.3, 0.45, 0.6), sp)       # rx 2, 3, 4
+    assert not K.sweep_multi_fits((0.6, 0.9, 1.2), sp)    # three with rx 7
+    assert K.sweep_multi_fits((0.2,) * 4, sp)             # rx 2
+    assert not K.sweep_multi_fits((0.2,) * 5, sp)
+    assert K.sweep_multi_fits((1.7,), sp)                 # rx 10
+    assert not K.sweep_multi_fits((0.6, 1.7), sp)
     x = torch.zeros((4, 4, 4), dtype=torch.float64)
     # the array's own faces are the default clamps
     img, mask = _inputs((9, 8, 7), 3)
@@ -282,15 +292,18 @@ def test_sweep_multi_shared_memory_matches_the_single_sweep_formula():
     )
 
     # one scale: the single sweep's block plus its taps
-    for r in [(4, 4, 3), (7, 7, 6), (1, 1, 1)]:
+    for r in [(4, 4, 3), (7, 7, 6), (1, 1, 1), (10, 13, 7)]:
         assert sweep_multi_smem_bytes([r]) == sweep_smem_bytes(*r) + 4 * (
             2 * sum(r) + 3)
-    # two scales share the raw plane, sized by the larger radii
+    # two scales share the raw plane (two buffers of c*f and c), sized by the
+    # larger radii; each has its own y pass buffer (rows padded to 34 + 32)
+    # and three s planes. No x ring: the queues are in registers.
     two = sweep_multi_smem_bytes([(4, 4, 3), (7, 7, 6)])
     cells = 16 * 34
-    assert two == 4 * ((2 * 9 + 3) * cells + (2 * 15 + 3) * cells
-                       + 2 * 11 + 3 + 2 * 20 + 3
-                       + 2 * (16 + 14) * (34 + 12) + 2 * 16 * (34 + 12))
+    assert two == 4 * (2 * 11 + 3 + 2 * 20 + 3
+                       + 2 * (2 * 16 * 66 + 3 * cells)
+                       + 4 * (16 + 14) * (34 + 12))
+    assert two == sweep_multi_smem_bytes([(7, 4, 3), (4, 7, 6)])
 
 
 # ---------------------------------------------------------------------------

@@ -445,6 +445,13 @@ def test_sharded_runs_are_bitwise_deterministic_and_order_independent():
 # two processes through the CLI (gloo)
 # --------------------------------------------------------------------------
 
+@pytest.fixture(autouse=True)
+def ask_for_the_cpu(monkeypatch):
+    """The port runs on the card unless asked: the CLI runs in this process
+    ask for the CPU, as the subprocesses of _run_distributed do."""
+    monkeypatch.setenv("IFE_PLATFORM", "cpu")
+
+
 def _free_port():
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
