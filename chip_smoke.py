@@ -5,6 +5,8 @@
     python3 chip_smoke.py --ranks 4     # the sharded path, one rank per card
     python3 chip_smoke.py --sweep-times [ROOT]   # the sweep family's 512^3
                                         # times of the checkout under ROOT
+    python3 chip_smoke.py --dispatch-table   # phase 5's table of the three
+                                        # features8 branches alone
 
 Run from the root of a checkout; needs one CUDA device of compute
 capability 9.0, nvcc and nvidia-smi (`--ranks N`: N of them on one host, and
@@ -40,13 +42,19 @@ failing phase exits non-zero:
               radii in every class of its register budget, on small odd
               shapes (X below a chunk, Y below a tile, Z = 1, radii beyond
               the extent, X over a chunk) and under masks that leave planes,
-              tiles or the whole volume empty;
+              tiles or the whole volume empty; the xs-stream kernel at every
+              x radius 11 .. 20, 24, 28, 36 (every tile its launcher picks
+              from) and ys_multi at S = 1 .. 4 (both skip the
+              planes and tails the mask leaves empty) under an empty, a
+              one-octant, a full and the sphere mask, on thin odd shapes and
+              on (128, 124, 120);
   4. main     four paths of user entry points, the launch counters reset
               before each and read after it. Features: the CLI
-              (extract-features -s 0.6 2.4, hessian-features --fused) on a
-              256x256x128 NIfTI, outputs checked against the plain f64 ops,
-              then features8_auto_channels at sigma 1.2 and 4.8 and
-              hessian_eig_features at 512^3. Bags: the CLI generate-rois,
+              (extract-features -s 0.6 2.4, hessian-features with and
+              without --fused) on a 256x256x128 NIfTI, outputs checked
+              against the plain f64 ops, then features8_auto_channels at
+              sigma 1.2 and 4.8, fused_features8 on its xs-stream branch at
+              2.4 and hessian_eig_features_channels at 512^3. Bags: the CLI generate-rois,
               determine-bin-edges -s 0.6 2.4 --bins 32 over two volumes,
               make-bag --device and make-bag with that spec; the spec
               checked against the plain twins' pipeline, the device bag
@@ -88,8 +96,16 @@ failing phase exits non-zero:
               sigma beside the feature pass; tap and xs beside the sweep;
               every shard mode beside its whole-volume mode; the 4-block
               and 2 x 2 sharded pass beside the single-device pass;
+     dispatch the features8 pass at 512^3 through each branch that takes
+              the scale (sweep, y/z passes + xs-stream, normalized_conv +
+              post), in turns, under the sphere mask and a mask of ones, at
+              every x radius 4 .. 28 and at 30, 32, 36, 40, 48: one JSON line
+              {"dispatch": [...]}, the table the dispatcher's radii are cut
+              from;
   6. profile  device time per CUDA kernel launch of one features8 pass per
-              sigma, one Hessian+eig pass, one config-4 histogram, one
+              sigma, one Hessian+eig pass (the hessian-features route,
+              hessian_eig_features_channels: the kernel and no other
+              launch), one config-4 histogram, one
               multiscale_features8_fused pass, one sweep_multi pass and one
               4-block sharded features8 pass at sigma 1.2 and 4.8
               (torch.profiler, 3 calls each).
@@ -104,10 +120,10 @@ ops within 1e-4 of that measure, the scales of the multi-scale stack within
 1e-4 or twice the distance of the per-scale f32 pass from them (the f32
 floor of a wide sigma's second differences). The sharded results equal the
 single-device port to the bit wherever both run the same kernel arithmetic
-(every sigma but 2.4, where the single-device dispatcher takes the xs-stream
-branch, y-z-x, and the sharded route the normalized convolution, x-y-z: there
-the sharded pass equals the single-device normalized convolution + post to
-the bit and the dispatcher's pass within SHARD_TOL). The line before the last is
+(every sigma the single-device dispatcher does not send to the xs-stream
+branch, y-z-x, where the sharded route takes the normalized convolution,
+x-y-z: there the sharded pass equals the single-device normalized
+convolution + post to the bit and the dispatcher's pass within SHARD_TOL). The line before the last is
 {"kernels": [...]}: per kernel its launches on the main paths, its time, its
 plain twin's time and its bound at 512^3. The bound is the larger of the
 bytes the function must move (each input read once, each output written
@@ -187,7 +203,7 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
 # the kernels each main path must launch
 FEATURE_PATH = ("hessian_eig", "normalized_conv", "features8_post",
                 "features8_sweep", "features8_xs_stream", "smooth_yz")
-BAG_PATH = ("features8_sweep", "features8_xs_stream", "smooth_yz", "histogram")
+BAG_PATH = ("histogram",)  # and the kernels of the branches at 0.6 / 2.4
 MULTISCALE_PATH = ("smooth_xz", "features8_ys_multi", "features8_sweep_multi",
                    "normalized_conv_tiled", "features8_post_windowed")
 SHARDED_PATH = ("features8_sweep_clamps", "normalized_conv",
@@ -226,6 +242,21 @@ SWEEP_CHECK_SIGMAS = ((1.2,), (0.6, 1.0), (0.3, 0.45, 0.6))
 # the sigmas at which phase 5 times the sweep in turns with the staged
 # normalized_conv + post pair: x radius 4, 7 and 10 at 0.78 mm
 SWEEP_VS_STAGED = (0.6, 1.2, 1.7)
+# the x radii of the xs-stream kernel that phase 3 checks one by one (those
+# past the sweep's instantiations up to ife_tpu's xs-stream limit), and the
+# scale sets of the ys-multi kernel, S = 1 .. 4
+XS_CHECK_RADII = tuple(range(11, 21)) + (24, 28, 36)
+YS_CHECK_SIGMAS = ((2.4,), YS_SIGMAS, (0.6, 2.4, 4.8), SIGMAS)
+# the scales at which phase 5 times the three features8 branches against
+# each other (the dispatch table): these, and one sigma more for every x
+# radius 4 .. 28 at 0.78 mm that they leave out and for DISPATCH_WIDE_RADII,
+# where only the xs-stream kernel and the staged pair take the scale
+DISPATCH_SIGMAS = (0.6, 1.2, 1.7, 1.8, 2.0, 2.4, 3.0, 3.4, 3.5, 4.8)
+DISPATCH_WIDE_RADII = (30, 32, 36, 40, 48)
+# the kernels each features8 branch launches
+BRANCH_KERNELS = {"sweep": ("features8_sweep",),
+                  "xs_stream": ("smooth_yz", "features8_xs_stream"),
+                  "nc_conv+post": ("normalized_conv", "features8_post")}
 # published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s and
 # float32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -669,6 +700,59 @@ def sweep_radius_checks(errs):
         f"{tuple(masks)}: bit-equal to the twins")
 
 
+def region_masks(shape, dev, sphere):
+    """Masks that leave everything, all but one octant, or nothing empty,
+    beside the sphere: a kernel that skips work outside the mask must store
+    its zeros there."""
+    X, Y, Z = shape
+    octant = torch.zeros(shape, device=dev)
+    octant[: (X + 1) // 2, : (Y + 1) // 2, : (Z + 1) // 2] = 1.0
+    return {"empty": torch.zeros(shape, device=dev), "one octant": octant,
+            "full": torch.ones(shape, device=dev), "sphere": sphere}
+
+
+def xs_ys_radius_checks(errs):
+    """The xs-stream kernel at every x radius XS_CHECK_RADII and the
+    ys-multi kernel at S = 1 .. 4 against their twins, on the inputs the
+    main path gives them (the twins' y/z- or x/z-smoothed volumes), under an
+    empty, a one-octant, a full and the sphere mask, on odd thin shapes and
+    on a shape with true faces on every side: both skip the planes and
+    tails the mask leaves empty."""
+    from ife_tpu_torch import kernels as K
+    from ife_tpu_torch.ops.stencil import smooth_taps
+
+    dev = torch.device("cuda")
+    sp = (0.78, 0.6, 1.1)
+    shapes = ((37, 29, 41), (5, 40, 33), (40, 9, 33), (23, 17, 1),
+              (140, 15, 35), (128, 124, 120))
+    for shape in shapes:
+        img, sphere = _inputs(shape, 0, dev)
+        for label, m in region_masks(shape, dev, sphere).items():
+            for rx in XS_CHECK_RADII:
+                sigma = (rx - 0.5) * sp[0] / 4.5
+                if (smooth_taps(sigma, sp[0])[1] != rx
+                        or not K.xs_stream_fits(sigma, sp)):
+                    raise PhaseError(f"sigma {sigma}: not x radius {rx}")
+                num, den = K.smooth_yz_plain(img, m, sigma, sp)
+                rel, _ = kernel_check(
+                    f"features8_xs_stream {shape} mask {label} rx {rx}",
+                    K.fused_features8_xs_stream(num, den, m, sigma, sp,
+                                                stack=False),
+                    K.features8_xs_stream_plain(num, den, m, sigma, sp))
+                errs["features8_xs_stream"].append(rel)
+                del num, den
+            for sigmas in YS_CHECK_SIGMAS:
+                kern, plain = ys_multi_pair(img, m, sigmas, sp)
+                rel, _ = multi_check(
+                    f"features8_ys_multi {shape} mask {label} {sigmas}",
+                    kern(), plain())
+                errs["features8_ys_multi"].append(rel)
+        torch.cuda.synchronize()
+    say("kernels", f"xs_stream at x radii {XS_CHECK_RADII} "
+        f"and ys_multi at S = 1..4 {YS_CHECK_SIGMAS} on {shapes}, masks "
+        "empty / one octant / full / sphere: bit-equal to the twins")
+
+
 def phase_kernels(errs):
     from ife_tpu_torch import kernels as K
 
@@ -713,6 +797,7 @@ def phase_kernels(errs):
         say("kernels", f"{shape} tap, xs and the shard modes at sigma 0.6 and "
             "1.2: bit-equal to the twins")
     sweep_radius_checks(errs)
+    xs_ys_radius_checks(errs)
 
 
 def hist_edges(chans, E):
@@ -789,6 +874,24 @@ def hist_kernel_checks(img, mask, shape, errs):
         f"{len(starts)} boxes, unweighted/mask/int32 weights: " + ", ".join(line))
 
 
+def dispatched_kernels(sigmas):
+    """The kernels of the features8 branches the dispatcher takes at
+    `sigmas` (FULL_SPACING)."""
+    from ife_tpu_torch.ops.features import features8_dispatch_branch
+
+    return tuple(k for s in sigmas for k in BRANCH_KERNELS[
+        features8_dispatch_branch(s, FULL_SPACING, FULL)])
+
+
+def takes_staged_passes(sigma):
+    """True when the single-device dispatcher runs the same passes as the
+    sharded route at `sigma` (that route takes the sweep or the staged
+    pair, never the xs-stream kernel), so the two agree to the bit."""
+    from ife_tpu_torch.ops.features import features8_dispatch_branch
+
+    return features8_dispatch_branch(sigma, FULL_SPACING, FULL) != "xs_stream"
+
+
 def branch_twin(img, m, sigma, sp):
     """The plain twins of the kernels features8 dispatches to at sigma."""
     from ife_tpu_torch import kernels as K
@@ -813,7 +916,8 @@ def phase_main(tmp):
     from ife_tpu_torch.ops.eigen import eigenvalue_features
     from ife_tpu_torch.ops.features import (
         FEATURE_NAMES, features8, features8_auto_channels,
-        features8_dispatch_branch, hessian_eig_features,
+        features8_dispatch_branch, fused_features8,
+        hessian_eig_features_channels,
     )
     from ife_tpu_torch.ops.stencil import hessian
 
@@ -830,7 +934,9 @@ def phase_main(tmp):
     for argv in (["extract-features", "-i", img_path, "-m", mask_path,
                   "-o", os.path.join(tmp, "feat"), "-s", "0.6", "2.4"],
                  ["hessian-features", "--fused", "-i", img_path, "-m",
-                  mask_path, "-o", os.path.join(tmp, "hess_")]):
+                  mask_path, "-o", os.path.join(tmp, "hess_")],
+                 ["hessian-features", "-i", img_path, "-m", mask_path, "-o",
+                  os.path.join(tmp, "hessc_")]):
         rc = main(argv)
         if rc != 0:
             raise PhaseError(f"CLI {argv[0]} exited {rc}")
@@ -838,7 +944,12 @@ def phase_main(tmp):
     for sigma in (1.2, 4.8):
         feats = features8_auto_channels(big_img, big_mask, sigma, FULL_SPACING)
         del feats
-    hess = hessian_eig_features(big_img, FULL_SPACING)
+    # the xs-stream branch through the entry point that names a branch,
+    # whether or not the dispatcher sends a sigma of this run there
+    feats = fused_features8(big_img, big_mask, 2.4, FULL_SPACING, stack=False,
+                            branch="xs_stream")
+    del feats
+    hess = hessian_eig_features_channels(big_img, FULL_SPACING)
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
     del hess
@@ -874,6 +985,12 @@ def phase_main(tmp):
                   "LaplacianOfGaussian", "GaussianCurvature", "FrobeniusNorm")
     got = [read_volume(os.path.join(tmp, f"hess_{n}.nii.gz")).data.to(dev)
            for n in hess_names]
+    # without --fused the route is hessian_eig_features_channels: the same
+    # kernel, no channel-last stack; the files are the same
+    if not bit_equal(got, [read_volume(os.path.join(tmp, f"hessc_{n}.nii.gz")
+                                       ).data.to(dev) for n in hess_names]):
+        raise PhaseError("hessian-features: the files with and without "
+                         "--fused differ")
     checks.append((
         "hessian-features --fused", got, (0, 1, 2),
         [c * inside for c in eigenvalue_features(
@@ -941,7 +1058,8 @@ def phase_bags(tmp):
         secs.append(f"{' '.join(argv[:2])} {time.perf_counter() - t0:.1f} s")
     launches = dict(LAUNCHES)
     say("bags", "; ".join(secs) + f"; launches {launches}")
-    missing = [k for k in BAG_PATH if launches.get(k, 0) < 1]
+    missing = [k for k in BAG_PATH + dispatched_kernels((0.6, 2.4))
+               if launches.get(k, 0) < 1]
     if missing:
         raise PhaseError(f"bag path launched no {missing} kernel")
 
@@ -1249,9 +1367,9 @@ def phase_sharded_cli(tmp):
         got, want = ([read_volume(path(f"{pre}_scale_{sigma:g}{n}.nii.gz")
                                   ).data.cuda() for n in FEATURE_NAMES]
                      for pre in ("sfeat", "feat"))
-        if sigma == 0.6 and not bit_equal(got, want):
-            raise PhaseError("extract-features --sharded s=0.6: files differ "
-                             "from the unsharded run's")
+        if takes_staged_passes(sigma) and not bit_equal(got, want):
+            raise PhaseError(f"extract-features --sharded s={sigma}: files "
+                             "differ from the unsharded run's")
         worst[sigma] = feature_errors(got, want, (2, 3, 4))[0]
         if worst[sigma] > SHARD_TOL:
             raise PhaseError(f"extract-features --sharded s={sigma}: "
@@ -1299,7 +1417,7 @@ def phase_sharded(img, mask):
     mf = mask.clamp(0, 1)
     for sigma in SIGMAS:
         disp = features8_auto_channels(img, mask, sigma, sp)
-        if sigma == 2.4:
+        if not takes_staged_passes(sigma):
             staged = K.fused_features8_post_stream(
                 K.fused_normalized_conv_sweep(img, mf, sigma, sp), mf, sp,
                 stack=False)
@@ -1490,6 +1608,68 @@ def phase_full_sweep(img, mask, errs):
         f"({float(mf.mean()):.1%} inside): the planes and tails the mask "
         "leaves empty are skipped")
     print(card_line(), flush=True)
+
+
+def dispatch_sigmas():
+    """(x radius, sigma) at FULL_SPACING for every x radius 4 .. 28 and
+    DISPATCH_WIDE_RADII: DISPATCH_SIGMAS, and for each radius they leave out
+    the sigma (rx - 0.5) * h / 4.5, whose radius is rx."""
+    import math
+
+    rows = {}
+    for sigma in DISPATCH_SIGMAS:
+        rows.setdefault(math.ceil(4.5 * sigma / FULL_SPACING[0]), sigma)
+    for rx in (*range(4, 29), *DISPATCH_WIDE_RADII):
+        rows.setdefault(rx, round((rx - 0.5) * FULL_SPACING[0] / 4.5, 4))
+    return sorted(rows.items())
+
+
+def phase_dispatch(img, mask):
+    """The dispatch table: the features8 pass at 512^3 through each branch
+    that takes the scale (fused_features8 with `branch`: the sweep only at
+    its instantiated radii, the xs-stream kernel where its ring fits, the
+    staged normalized_conv + post everywhere), in turns (a, b, c, c, b, a),
+    under the sphere mask and a mask of ones, at every x radius 4 .. 28 and
+    at DISPATCH_WIDE_RADII.
+    Prints one JSON line {"dispatch": [...]} and returns the rows. The
+    dispatcher's radii (ops.features _SWEEP_RX_MAX, _XS_RX_MAX) are cut where
+    the sphere mask's times cross; the line says, per radius, which branch
+    the dispatcher takes and which was fastest."""
+    from ife_tpu_torch import kernels as K
+    from ife_tpu_torch.ops.features import (
+        _SWEEP_RX_MAX, _XS_RX_MAX, features8_dispatch_branch, fused_features8,
+    )
+
+    sp = FULL_SPACING
+    masks = (("sphere", mask), ("ones", torch.ones_like(mask)))
+    rows = []
+    for rx, sigma in dispatch_sigmas():
+        branches = [b for b, fits in (
+            ("sweep", K.sweep_fits(sigma, sp)),
+            ("xs_stream", K.xs_stream_fits(sigma, sp)),
+            ("nc_conv+post", True)) if fits]
+        for label, m in masks:
+            ms = {b: [] for b in branches}
+            for b in branches + branches[::-1]:
+                ms[b].append(cuda_ms(lambda: fused_features8(
+                    img, m, sigma, sp, stack=False, branch=b))[0])
+            row = {"rx": rx, "sigma": sigma, "mask": label}
+            row.update({b: round(sum(v) / len(v), 3) for b, v in ms.items()})
+            row["fastest"] = min(ms, key=lambda b: sum(ms[b]))
+            row["dispatched"] = features8_dispatch_branch(sigma, sp, FULL)
+            rows.append(row)
+            torch.cuda.empty_cache()
+        say("dispatch", "; ".join(
+            f"rx {r['rx']} s={r['sigma']} {r['mask']}: " + ", ".join(
+                f"{b} {r[b]:.3f}" for b in branches)
+            + f" -> {r['dispatched']}" for r in rows[-2:]))
+    disagree = [(r["rx"], r["dispatched"], r["fastest"]) for r in rows
+                if r["mask"] == "sphere" and r["dispatched"] != r["fastest"]]
+    say("dispatch", f"cut at _SWEEP_RX_MAX {_SWEEP_RX_MAX}, _XS_RX_MAX "
+        f"{_XS_RX_MAX}; under the sphere mask the dispatched branch is the "
+        f"fastest at every radius but {disagree}")
+    print(json.dumps({"dispatch": rows, "card": card_line()}), flush=True)
+    return rows
 
 
 def phase_full_multi(img, mask, errs, results):
@@ -1837,14 +2017,16 @@ def phase_profile(img, mask):
     from torch.profiler import ProfilerActivity, profile, supported_activities
 
     from ife_tpu_torch.ops.features import (
-        features8_auto_channels, hessian_eig_features,
+        features8_auto_channels, hessian_eig_features_channels,
     )
 
     if ProfilerActivity.CUDA not in supported_activities():
         say("profile", "not measured (this torch cannot profile CUDA)")
         return
 
-    passes = [("hessian_eig", lambda: hessian_eig_features(img, FULL_SPACING))]
+    # the route of the hessian-features CLI: the kernel and nothing else
+    passes = [("hessian_eig_features_channels",
+               lambda: hessian_eig_features_channels(img, FULL_SPACING))]
     passes += [(f"features8 s={s}",
                 lambda s=s: features8_auto_channels(img, mask, s, FULL_SPACING))
                for s in SIGMAS]
@@ -1887,6 +2069,10 @@ def phase_profile(img, mask):
             say("profile", f"{label}: not measured (no device time recorded)")
             continue
         total = sum(ms for _, _, ms in rows)
+        if label == "hessian_eig_features_channels" and (
+                len(rows) != 1 or "hessian_eig" not in rows[0][0]):
+            raise PhaseError(f"{label}: launches beside the hessian_eig "
+                             f"kernel: {rows}")
         say("profile", f"{label}: device {total:.3f} ms per pass = "
             + "; ".join(f"{k} x{n} {ms:.3f}" for k, n, ms in
                         sorted(rows, key=lambda r: -r[2])))
@@ -1928,7 +2114,7 @@ def rank_worker(rank, world, port):
             got = _gathered(P.sharded_features8(xi, mi, sigma, mesh, sp,
                                                 stack=False))
             want = features8_auto_channels(img, mask, sigma, sp)
-            if sigma == 2.4:  # the dispatcher takes the xs-stream branch
+            if not takes_staged_passes(sigma):  # the xs-stream branch
                 rel, _ = feature_errors(got, want, (2, 3, 4))
                 if rel > SHARD_TOL:
                     raise PhaseError(f"rank {rank} s={sigma}: {rel:.2e} from "
@@ -2003,8 +2189,10 @@ def sweep_times(label):
     """`--sweep-times [ROOT]`: one JSON line of 512^3 times (median, min, max
     of 5, ms) of the sweep family of the ife_tpu_torch package on sys.path:
     the sweep at sigma 0.6 / 1.2 / 1.7, with clamps and under a mask of ones,
-    sweep_multi, the staged pair, xs_stream, ys_multi, tap and xs. Run it on
-    two checkouts in turns to compare them within one call on one card."""
+    sweep_multi, the staged pair, xs_stream at x radius 11 / 14 / 17 / 20
+    (14 also under a mask of ones), ys_multi at S = 1 .. 4 (S = 2 also under
+    a mask of ones), tap and xs. Run it on two checkouts in turns to compare
+    them within one call on one card."""
     from ife_tpu_torch import kernels as K
 
     if not torch.cuda.is_available():
@@ -2031,13 +2219,22 @@ def sweep_times(label):
     for s in SWEEP_VS_STAGED:
         res[f"nc+post {s}"] = ms(lambda: K.fused_features8_post_stream(
             K.fused_normalized_conv_sweep(img, mf, s, sp), mf, sp))
-    num, den = K.fused_smooth_yz(img, mask, 2.4, sp)
-    res["xs_stream 2.4"] = ms(
-        lambda: K.fused_features8_xs_stream(num, den, mask, 2.4, sp))
-    del num, den
-    kern, _ = ys_multi_pair(img, mask, YS_SIGMAS, sp)
-    res[f"ys_multi {YS_SIGMAS}"] = ms(kern)
-    del kern
+    ones = torch.ones_like(mask)
+    for rx in (11, 14, 17, 20, 24):
+        sigma = round((rx - 0.5) * sp[0] / 4.5, 4)
+        for label, m in (("", mask), (" mask of ones", ones))[:1 + (rx == 14)]:
+            num, den = K.fused_smooth_yz(img, m, sigma, sp)
+            res[f"xs_stream rx {rx}{label}"] = ms(
+                lambda: K.fused_features8_xs_stream(num, den, m, sigma, sp))
+            del num, den
+    for sigmas in YS_CHECK_SIGMAS:
+        for label, m in (("", mask), (" mask of ones", ones))[
+                :1 + (sigmas == YS_SIGMAS)]:
+            kern, _ = ys_multi_pair(img, m, sigmas, sp)
+            res[f"ys_multi {sigmas}{label}"] = ms(kern)
+            del kern
+    del ones
+    torch.cuda.empty_cache()
     res["tap 1.2"] = ms(lambda: K.fused_features8_tap(img, mask, 1.2, sp))
     res["xs 1.2"] = ms(lambda: K.fused_features8_xs(img, mask, 1.2, sp))
     print(json.dumps(res), flush=True)
@@ -2059,6 +2256,17 @@ def main() -> int:
             return 1
         return 0
     sys.path.insert(0, root)
+
+    if sys.argv[1:2] == ["--dispatch-table"]:
+        try:
+            phase_device()
+            phase_build()
+            img, mask = _inputs(FULL, 2, "cuda")
+            phase_dispatch(img, mask)
+        except PhaseError as e:
+            print(f"chip_smoke: --dispatch-table failed: {e}", file=sys.stderr)
+            return 1
+        return 0
 
     if sys.argv[1:2] in (["--ranks"], ["--rank-worker"]):
         try:
@@ -2102,6 +2310,9 @@ def main() -> int:
         results = {}
         phase_full(img, mask, errs, results)
         phase_full_sweep(img, mask, errs)
+        phase = "dispatch"
+        phase_dispatch(img, mask)
+        phase = "full"
         phase_full_multi(img, mask, errs, results)
         phase_full_modes(img, mask, errs, results)
         hist_work = phase_full_hist(img, mask, errs, results)

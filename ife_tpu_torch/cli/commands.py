@@ -134,19 +134,27 @@ def run_extract_features(args):
             _progress(f"Skipping completed scale {s:g} (manifest)")
             continue
         _progress(f"Processing scale {s:g}")
-        with stage_timer(f"features8[s={s:g}]", voxels=img.numel(), emit=True):
-            if mesh is not None:
-                from ife_tpu_torch.parallel import features8_sharded_auto
 
-                feats = features8_sharded_auto(
-                    img, msk, float(s), mesh, vol.spacing).cpu().unbind(-1)
-            else:
+        def write(k, ch, s=s):
+            _save(f"{args.out}_scale_{s:g}{FEATURE_NAMES[k]}.nii.gz",
+                  vol.with_data(ch.cpu().contiguous()))
+
+        if mesh is not None:
+            from ife_tpu_torch.parallel import features8_sharded_channels_to
+
+            # each channel is gathered to the primary alone and written
+            # there before the next is gathered
+            with stage_timer(f"features8[s={s:g}] sharded, gathered and "
+                             "written", voxels=img.numel(), emit=True):
+                features8_sharded_channels_to(img, msk, float(s), mesh, write,
+                                              vol.spacing)
+        else:
+            with stage_timer(f"features8[s={s:g}]", voxels=img.numel(),
+                             emit=True):
                 feats = [c.cpu() for c in features8_auto_channels(
                     img, msk, float(s), vol.spacing)]
-        if primary:
-            for name, ch in zip(FEATURE_NAMES, feats):
-                _save(f"{args.out}_scale_{s:g}{name}.nii.gz",
-                      vol.with_data(ch.contiguous()))
+            for k, ch in enumerate(feats):
+                write(k, ch)
         if manifest is not None:
             # every process records completion in its OWN manifest so a
             # restart keeps the collective schedule in lockstep
@@ -215,9 +223,9 @@ def run_hessian_features(args):
 
         feats = fused_hessian_eig(img, vol.spacing, stack=False)
     else:
-        from ife_tpu_torch.ops.features import hessian_eig_features
+        from ife_tpu_torch.ops.features import hessian_eig_features_channels
 
-        feats = hessian_eig_features(img, vol.spacing).unbind(-1)
+        feats = hessian_eig_features_channels(img, vol.spacing)
     inside = None
     if args.mask:
         inside = _load(args.mask).data.to(dev) != 0

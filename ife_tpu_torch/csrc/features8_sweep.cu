@@ -60,8 +60,9 @@
 // the y pass and per two in the z pass, none in the x pass, and the tail's
 // ~150 operations and 19 loads.
 //
-// features8_xs_stream_kernel keeps its x ring in shared memory: it serves
-// x radii beyond kSweepMaxRx, where a register queue would spill.
+// features8_xs_stream_kernel (below) keeps its x ring in shared memory: it
+// serves the x radii beyond kSweepMaxRx, where a register queue would not
+// fit a thread.
 #include <cuda_runtime.h>
 
 #include "sweep_passes.cuh"
@@ -246,95 +247,214 @@ extern "C" int ife_features8_sweep(const float* image, const float* mask,
 // ---------------------------------------------------------------------------
 // the x pass alone, from y/z-smoothed inputs: a shared-memory ring
 // ---------------------------------------------------------------------------
+//
+// features8_xs_stream_kernel serves the x radii beyond kSweepMaxRx. Its x
+// ring of 2rx + 1 numerator and denominator planes cannot live in registers
+// as the sweep's queue does: 2 * (2rx + 1) = 46-98 floats at rx 11-24
+// beside the tail's, over the 120 registers a thread of a 544-thread block
+// may have, and over two threads a cell it would need 1088 threads for the
+// 544 cells of the sweep's tile, more than a block may have. So the ring is
+// in shared memory: 2rx + 2 slots of each (the window and the plane in
+// flight) on the s region of the block's tile. That makes the tile the knob.
+// The kernel is limited by the latency of its per-cell x pass (two
+// shared-memory loads, two multiplies and two dependent adds a tap) and of
+// the tail, which only more warps on an SM hide: measured at 512^3 under the
+// sphere mask (NVIDIA H100 80GB HBM3, 700 W), 17 resident warps (one block
+// of the 14-row tile) took 4.0-4.3 ms at rx 14-20, 22 warps (two blocks of 8
+// rows) 3.6-3.7, 27 warps (three blocks of 6 rows) 3.4, and 34 warps at rx
+// 11 (two blocks of 14 rows) 3.0-3.1, where 6 or 8 rows added nothing; the
+// narrower tile's larger halo (1.42 cells a voxel at 6 rows against 1.21 at
+// 14) costs less than the warps it buys, down to a point: at rx 14 four rows
+// (28 warps, 1.59 cells a voxel) took 3.66 ms against 3.40 for six. The
+// kernel is instantiated for tiles of 14, 8, 6 and 4 rows (kXsTiles), and
+// the launcher takes the one whose warps resident on an SM at this radius's
+// ring (CUDA's occupancy query), times the share of its cells that are its
+// own voxels' (rows / (rows + 2)), are the most, the wider on a tie. Each
+// instantiation does what the sweep's redesign showed pays on the card:
+//   * a block sweeps only the planes of its chunk between the first and the
+//     last on which its tile holds a voxel inside the mask, plus one each
+//     side for the stencil (tile_mask_span), and stores zeros on the rest
+//     (tile_zero_planes); the tail is skipped per voxel outside the mask
+//     (s_ring.cuh);
+//   * the first window of 2rx + 1 planes is asked for at once, and from then
+//     on plane q + 1's two inputs are in flight (cp.async, into the ring's
+//     spare slot) while plane q's window is summed and the tail runs;
+//   * one thread per cell: the x pass of a cell is one thread's loop over
+//     2rx + 1 ring slots in tap order (two runs of consecutive slots, no
+//     wrap test per tap), and the divide steps around 0/0 (sweep_divide).
+// Two barriers a plane. HBM sees the two inputs and the mask once (planes
+// re-read at chunk ends come from L2) and the eight channels written once.
 
-constexpr int kXsThreads = 512;  // 256: 1.08x / 1.18x slower at rx 4 / 7
+constexpr int kXsMinTileY = 4;  // the narrowest tile (kXsTiles' last)
 
-// Shared memory, in floats: the x ring of numerator and denominator
-// (2 * (2rx+1) * cells) and the ring of three s planes.
-__host__ __device__ inline size_t xs_stream_smem_floats(int rx) {
-    return 2 * (size_t)(2 * rx + 1) * kSweepCells + 3 * kSweepCells;
+template <int kTileY>
+struct XsTile {
+    static constexpr int kCells = (kTileY + 2) * kSweepSZ;  // the s region
+    static constexpr int kThreads = (kCells + 31) / 32 * 32;  // one a cell
+};
+
+// Shared memory, in floats, of a block of `cells` s cells at x radius rx:
+// the x ring of numerator and denominator (2 * (2rx + 2) * cells) and the
+// ring of three s planes.
+__host__ __device__ inline size_t xs_stream_smem_floats(int rx, int cells) {
+    return 2 * (size_t)(2 * rx + 2) * cells + 3 * (size_t)cells;
 }
 
-// x planes per block: enough that re-reading the 2rx+2 planes of overlap
-// with the next chunk costs ~1/8 of the work
+// x planes per block: about 16 (rx + 1), but the chunks of X equal (a short
+// last chunk would re-read its 2rx + 2 planes of overlap for little work)
 __host__ inline int xs_stream_chunk_x(long long X, int rx) {
-    return (int)std::min<long long>(X, std::max(64, 16 * (rx + 1)));
+    const long long want = std::max(64, 16 * (rx + 1));
+    const long long n = (X + want - 1) / want;
+    return (int)((X + n - 1) / n);
 }
 
-// s plane = G_x num / G_x den from the x ring ([2rx+1][cells] each), whose
-// slot `first` holds the plane of tap 0
-__device__ __forceinline__ void xs_x_pass_divide(const float* rn,
-                                                 const float* rd, int first,
-                                                 const Taps& tx, float* sp) {
-    const int W = 2 * tx.r + 1;
-    for (int idx = threadIdx.x; idx < kSweepCells; idx += blockDim.x) {
-        float an = 0.0f, ad = 0.0f;
-        for (int t = 0, sl = first; t < W; ++t, sl = sl + 1 == W ? 0 : sl + 1) {
-            const int e = sl * kSweepCells + idx;
-            an = t == 0 ? tx.t[0] * rn[e] : an + tx.t[t] * rn[e];
-            ad = t == 0 ? tx.t[0] * rd[e] : ad + tx.t[t] * rd[e];
-        }
-        sp[idx] = sweep_divide(an, ad);
-    }
-}
-
-// a, b = G_z G_y (c*f), G_z G_y c; mask = the clamped mask. Per input plane
-// q the block loads both on the tile plus one into slot q of a ring of the
-// last 2rx+1 planes and, once the ring holds planes p - rx .. p + rx, runs
-// the x pass and the divide into the ring of three s planes and emits
-// plane p - 1.
-__global__ void __launch_bounds__(kXsThreads)
+// a, b = G_z G_y (c*f), G_z G_y c; mask = the clamped mask. The ring has
+// S = 2rx + 2 slots; input plane q lives in slot (q - q_lo) % S.
+template <int kTileY>
+__global__ void __launch_bounds__(XsTile<kTileY>::kThreads)
 features8_xs_stream_kernel(const float* __restrict__ a,
                            const float* __restrict__ b,
                            const float* __restrict__ mask,
                            float* __restrict__ out, int X, int Y, int Z,
                            int chunk_x, Taps tx, StencilRecip k) {
     extern __shared__ float smem[];
-    constexpr int SZ = kSweepSZ, NC = kSweepCells;
+    constexpr int SZ = kSweepSZ, NC = XsTile<kTileY>::kCells;
+    constexpr int kThreads = XsTile<kTileY>::kThreads;
     const int rx = tx.r;
-    const int W = 2 * rx + 1;  // x ring planes
-    float* rn = smem;             // [W][NC] x ring, numerator
-    float* rd = rn + W * NC;      // [W][NC] x ring, denominator
-    float* ring = rd + W * NC;    // [3][NC] s planes
+    const int W = 2 * rx + 1;     // the window of one s plane
+    const int S = W + 1;          // ring slots: the window and one in flight
+    float* rn = smem;             // [S][NC] x ring, numerator
+    float* rd = rn + S * NC;      // [S][NC] x ring, denominator
+    float* ring = rd + S * NC;    // [3][NC] s planes
 
     const int z0 = blockIdx.x * kSweepTileZ;
-    const int y0 = blockIdx.y * kSweepTileY;
+    const int y0 = blockIdx.y * kTileY;
     const int xa = blockIdx.z * chunk_x;
     const int xb = min(xa + chunk_x, X);
     const long long plane = (long long)Y * Z;
-    const int p_lo = max(xa - 1, 0);
-    const int p_hi = min(xb, X - 1);
     const FaceClamps fc = whole_volume_faces(X, Y);
 
-    for (int q = p_lo - rx; q <= p_hi + rx; ++q) {
-        const long long src = (long long)clamp_index(q, X) * plane;
-        const int slot = ((q % W) + W) % W;
-        float* xn = rn + slot * NC;
-        float* xd = rd + slot * NC;
-        for (int idx = threadIdx.x; idx < NC; idx += blockDim.x) {
-            const int gy = clamp_index(y0 - 1 + idx / SZ, Y);
-            const int gz = clamp_index(z0 - 1 + idx % SZ, Z);
-            const long long off = src + (long long)gy * Z + gz;
-            xn[idx] = __ldg(a + off);
-            xd[idx] = __ldg(b + off);
+    __shared__ int span[2];
+    int x_first, x_last;
+    tile_mask_span<kTileY, kSweepTileZ, kThreads>(mask, xa, xb, y0, z0, Y, Z,
+                                                  span, x_first, x_last);
+    tile_zero_planes<kTileY, kSweepTileZ, kThreads>(out, xa, xb, x_first,
+                                                    x_last, X, Y, Z, y0, z0);
+    if (x_first > x_last) return;  // the same for every thread of the block
+    const int p_lo = max(x_first - 1, 0);
+    const int p_hi = min(x_last + 1, X - 1);
+    const int q_lo = p_lo - rx;
+
+    // this thread's cell (none for the threads past the last cell): its
+    // offset within an x plane
+    const int cell = threadIdx.x;
+    const bool has_cell = cell < NC;
+    const long long cell_off =
+        (long long)clamp_index(y0 - 1 + cell / SZ, Y) * Z
+        + clamp_index(z0 - 1 + cell % SZ, Z);
+    auto issue = [&](int q) {
+        if (!has_cell) return;
+        const long long src = (long long)clamp_index(q, X) * plane + cell_off;
+        const int e = ((q - q_lo) % S) * NC + cell;
+        cp_async_f32(rn + e, a + src);
+        cp_async_f32(rd + e, b + src);
+    };
+
+    // the first window: planes q_lo .. q_lo + 2rx
+    for (int q = q_lo; q < q_lo + W; ++q) issue(q);
+    cp_async_wait_all();
+    __syncthreads();
+    for (int p = p_lo; p <= p_hi; ++p) {
+        const int q = p + rx;  // the window's newest plane
+        if (p < p_hi) issue(q + 1);
+        if (has_cell) {
+            // the x pass of plane p: tap t reads plane p - rx + t, from slot
+            // first + t in two runs of consecutive slots
+            const int first = (p - p_lo) % S;
+            const int run = min(W, S - first);
+            const float* en = rn + first * NC + cell;
+            const float* ed = rd + first * NC + cell;
+            float an = tx.t[0] * en[0], ad = tx.t[0] * ed[0];
+            int t = 1;
+            for (; t < run; ++t) {
+                an = an + tx.t[t] * en[t * NC];
+                ad = ad + tx.t[t] * ed[t * NC];
+            }
+            for (int sl = 0; t < W; ++t, ++sl) {
+                an = an + tx.t[t] * rn[sl * NC + cell];
+                ad = ad + tx.t[t] * rd[sl * NC + cell];
+            }
+            ring[(p % 3) * NC + cell] = sweep_divide(an, ad);
         }
         __syncthreads();
-
-        const int p = q - rx;  // the ring now holds planes p - rx .. p + rx
-        if (p < p_lo) continue;
-        // ring slot of plane p - rx: tap 0
-        xs_x_pass_divide(rn, rd, ((p - rx) % W + W) % W, tx,
-                         ring + (p % 3) * NC);
+        sweep_emit<false, kTileY>(ring, p, x_first, x_last + 1, X, Y, Z, y0,
+                                  z0, mask, out, k, fc);
+        cp_async_wait_all();
         __syncthreads();
-        sweep_emit<false>(ring, p, xa, xb, X, Y, Z, y0, z0, mask, out, k, fc);
-        // the next plane overwrites a ring slot the x pass read and, two
-        // planes on, the s slot the tail read: the syncs after its loads
-        // order those writes after these reads
+        // The next iteration writes the slot of plane p - rx, which this x
+        // pass read before the first barrier, and the s slot of plane p - 2,
+        // which this tail read before the second.
     }
 }
 
+// Set the instantiation's shared memory for this radius and ask how many of
+// its blocks an SM holds; 0 when the ring does not fit a block.
+template <int kTileY>
+static int xs_stream_blocks_per_sm(int rx, size_t* smem) {
+    *smem = xs_stream_smem_floats(rx, XsTile<kTileY>::kCells) * sizeof(float);
+    if (*smem > (size_t)kSweepMaxSmem) return 0;
+    if (cudaFuncSetAttribute(features8_xs_stream_kernel<kTileY>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)*smem) != cudaSuccess)
+        return 0;
+    int blocks = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &blocks, features8_xs_stream_kernel<kTileY>,
+            XsTile<kTileY>::kThreads, *smem) != cudaSuccess)
+        return 0;
+    return blocks;
+}
+
+template <int kTileY>
+static void xs_stream_launch(const float* a, const float* b,
+                             const float* mask, float* out, long long X,
+                             long long Y, long long Z, const Taps& tx,
+                             const StencilRecip& k, size_t smem,
+                             cudaStream_t stream) {
+    const int chunk = xs_stream_chunk_x(X, tx.r);
+    const dim3 grid((unsigned)((Z + kSweepTileZ - 1) / kSweepTileZ),
+                    (unsigned)((Y + kTileY - 1) / kTileY),
+                    (unsigned)((X + chunk - 1) / chunk));
+    features8_xs_stream_kernel<kTileY>
+        <<<grid, XsTile<kTileY>::kThreads, smem, stream>>>(
+            a, b, mask, out, (int)X, (int)Y, (int)Z, chunk, tx, k);
+}
+
+// One entry per instantiated tile: its rows, its threads, and the two
+// functions above.
+struct XsTileEntry {
+    int rows, threads;
+    int (*blocks_per_sm)(int rx, size_t* smem);
+    void (*launch)(const float*, const float*, const float*, float*,
+                   long long, long long, long long, const Taps&,
+                   const StencilRecip&, size_t, cudaStream_t);
+};
+
+template <int kTileY>
+constexpr XsTileEntry xs_tile_entry() {
+    return {kTileY, XsTile<kTileY>::kThreads, xs_stream_blocks_per_sm<kTileY>,
+            xs_stream_launch<kTileY>};
+}
+
+static const XsTileEntry kXsTiles[] = {xs_tile_entry<14>(), xs_tile_entry<8>(),
+                                       xs_tile_entry<6>(),
+                                       xs_tile_entry<kXsMinTileY>()};
+
 // num_yz, den_yz: the y/z-smoothed numerator and denominator; mask: the
-// clamped {0, 1} mask; all contiguous (X, Y, Z) float32; out: (8, X, Y, Z).
+// clamped {0, 1} mask; all contiguous (X, Y, Z) float32, Y * Z < 2^31; out:
+// (8, X, Y, Z). The tile: of kXsTiles, the one with the most warps resident
+// on an SM at this x radius, weighted by rows / (rows + 2), the wider on a
+// tie.
 extern "C" int ife_features8_xs_stream(const float* num_yz,
                                        const float* den_yz, const float* mask,
                                        float* out, long long X, long long Y,
@@ -344,19 +464,19 @@ extern "C" int ife_features8_xs_stream(const float* num_yz,
                                        float rxx, float ryy, float rzz,
                                        cudaStream_t stream) {
     Taps tx;
-    if (!make_taps(taps_x, ntx, &tx)) return (int)cudaErrorInvalidValue;
+    if (!make_taps(taps_x, ntx, &tx) || Y * Z >= (1LL << 31))
+        return (int)cudaErrorInvalidValue;
     const StencilRecip k{r2x, r2y, r2z, rxx, ryy, rzz};
-    const size_t smem = xs_stream_smem_floats(tx.r) * sizeof(float);
-    if (smem > (size_t)kSweepMaxSmem) return (int)cudaErrorInvalidValue;
-    if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            features8_xs_stream_kernel,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return (int)e;
+    const XsTileEntry* best = nullptr;
+    float best_score = 0.0f;
+    size_t best_smem = 0;
+    for (const XsTileEntry& e : kXsTiles) {
+        size_t smem;
+        const int warps = e.blocks_per_sm(tx.r, &smem) * e.threads / 32;
+        const float score = warps * (float)e.rows / (float)(e.rows + 2);
+        if (score > best_score) best = &e, best_score = score, best_smem = smem;
     }
-    const int chunk = xs_stream_chunk_x(X, tx.r);
-    features8_xs_stream_kernel<<<sweep_grid(X, Y, Z, chunk), kXsThreads, smem,
-                                 stream>>>(
-        num_yz, den_yz, mask, out, (int)X, (int)Y, (int)Z, chunk, tx, k);
+    if (best == nullptr) return (int)cudaErrorInvalidValue;
+    best->launch(num_yz, den_yz, mask, out, X, Y, Z, tx, k, best_smem, stream);
     return (int)cudaGetLastError();
 }

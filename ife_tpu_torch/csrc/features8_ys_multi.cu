@@ -15,18 +15,35 @@
 // bit (the library is built without FMA contraction).
 //
 // A block owns one scale (blockIdx.z carries scale and x chunk), a (y, z)
-// tile of 30 x 32 voxels and a chunk of x, and sweeps x. Per plane p it
-//   1. loads num and den on the tile plus a one-voxel halo, extended by the y
-//      radius, at clamped positions (the ZeroFluxNeumann pad of the y pass);
-//   2. runs the y FIR and the divide for the 32 x 34 cells of the tile plus
-//      halo into a ring of three s planes. Each thread makes four
-//      consecutive y outputs of one z column from one walk over the 2r + 4
-//      inputs they share (fir_walk in fir.cuh), so an input leaves shared
-//      memory once for four outputs, each still summed in tap order;
-//   3. emits the features of plane p - 1 through s_ring.cuh (the one tail of
-//      features8_tail.cuh). The first and last plane of the volume stand in
-//      for their missing x neighbours: the tail clamps x as it clamps y and z,
-//      to the smoothed field, never to a smoothing at a virtual position.
+// tile of 30 x 32 voxels and a chunk of x, and sweeps x. It first finds the
+// planes of its chunk on which its tile holds a voxel inside the mask
+// (tile_mask_span of sweep_passes.cuh), stores zeros on the others
+// (tile_zero_planes) and sweeps only the s planes from one before the first
+// to one after the last. Per s plane p it
+//   1. loads plane p's numerator and denominator on the tile plus a
+//      one-voxel halo, extended by the y radius, at clamped positions (the
+//      ZeroFluxNeumann pad of the y pass), each thread a fixed column of
+//      rows kYsLoadRows apart (one clamp and one multiply an element);
+//   2. runs the y FIR and the divide (sweep_divide: den == 0 stepped
+//      around, the same bits) for the 32 x 34 cells of the tile plus halo
+//      into a ring of three s planes. Each thread makes four consecutive y
+//      outputs of one z column from one walk over the 2r + 4 inputs they
+//      share (fir_walk in fir.cuh), so an input leaves shared memory once for
+//      four outputs, each still summed in tap order;
+//   3. after a barrier, emits the features of plane p - 1 through
+//      s_ring.cuh (the one tail of features8_tail.cuh), skipping the tail of
+//      every voxel outside the mask. The first and last plane of the volume
+//      stand in for their missing x neighbours: the tail clamps x as it
+//      clamps y and z, to the smoothed field, never to a smoothing at a
+//      virtual position;
+//
+// One buffer, not two: with the next plane in flight in a second buffer (61
+// KB of shared memory at ry 28 against 37) an SM holds half the blocks, and
+// at 512^3 the launch measured 6.6-6.8 ms under the sphere mask against
+// 6.3-6.5 with one buffer, 9.9-10.1 against 8.6-8.8 under a mask of ones
+// (S = 2, sigma 2.4 and 4.8 at 0.78 mm; NVIDIA H100 80GB HBM3, 700 W). Four
+// to six blocks of nine warps hide the loads' latency; x chunks of 128
+// planes in place of 64 measured the same to 2%.
 //
 // The y halo: a 30-row tile with ry = 28 reads (32 + 56) / 30 = 2.9 times
 // its input rows, a full-Y strip would read each once. The strip needs
@@ -38,15 +55,17 @@
 // inputs are 2 of the 10 volumes a scale moves.
 //
 // What bounds it on the H100: not HBM. The bytes (2 inputs and 8 outputs per
-// scale, the mask) are a third of its time at 512^3; the rest is arithmetic
-// and address work in the SMs: per cell the FIR's 2 * (2r + 1) multiplies and adds
-// (unfused, to match the twin), the index arithmetic of the clamped loads,
-// and the tail, in three phases a plane separated by barriers.
+// scale, the mask) are a third of its time at 512^3 with a mask of ones; the
+// rest is arithmetic and address work in the SMs: per cell the FIR's
+// 2 * (2r + 1) multiplies and adds (unfused, to match the twin), the index
+// arithmetic of the clamped loads, and the tail. Under a lung-like mask
+// most planes of most tiles hold no voxel inside and are not swept.
 #include <cuda_runtime.h>
 
 #include "features8_tail.cuh"
 #include "fir.cuh"
 #include "s_ring.cuh"
+#include "sweep_passes.cuh"
 
 constexpr int kYsTileY = 30;
 constexpr int kYsTileZ = 32;
@@ -61,6 +80,9 @@ constexpr int kYsRun = 4;  // consecutive y outputs per thread; divides kYsSY
 constexpr int kYsThreads = 288;
 constexpr int kYsMaxSmem = 227 * 1024;
 constexpr int kYsChunkX = 64;  // two planes of overlap per chunk: 3%
+// rows of the extended plane one load step covers: thread t loads column
+// t % kYsSZ of rows t / kYsSZ + k * kYsLoadRows
+constexpr int kYsLoadRows = kYsThreads / kYsSZ;
 
 struct YsScales {
     int S;
@@ -87,16 +109,17 @@ features8_ys_multi_kernel(YsScales sc, const float* __restrict__ taps,
     const int ry = sc.r[s];
     const int NT = 2 * ry + 1;
     const int PY = SY + 2 * ry;
-    float* st = smem;            // [NT] taps
-    float* pn = st + NT;         // [PY][SZ] numerator
-    float* pd = pn + PY * SZ;    // [PY][SZ] denominator
-    float* ring = pd + PY * SZ;  // [3][NC] s planes
+    const int n_ext = PY * SZ;        // cells of an extended plane
+    float* st = smem;                 // [NT] taps
+    float* pn = st + NT;              // [PY][SZ] numerator
+    float* pd = pn + n_ext;           // [PY][SZ] denominator
+    float* ring = pd + n_ext;         // [3][NC] s planes
     const float* __restrict__ num = sc.num[s];
     const float* __restrict__ den = sc.den[s];
 
     for (int i = threadIdx.x; i < NT; i += blockDim.x)
         st[i] = taps[(size_t)s * kMaxTaps + i];
-    // ordered before the first FIR by the sync after the first load
+    // ordered before the first FIR by the barrier after the first load
 
     const int z0 = blockIdx.x * kYsTileZ;
     const int y0 = blockIdx.y * kYsTileY;
@@ -106,22 +129,36 @@ features8_ys_multi_kernel(YsScales sc, const float* __restrict__ taps,
     const long long n = (long long)X * plane;
     float* const out_s = out + (long long)s * 8 * n;
 
-    // s planes this block needs: its chunk and one plane each side
-    for (int p = max(xa - 1, 0); p <= min(xb, X - 1); ++p) {
-        const long long src = (long long)p * plane;
-        // extended cell (i, j) is global (y0 - 1 - ry + i, z0 - 1 + j), clamped
-        for (int idx = threadIdx.x; idx < PY * SZ; idx += blockDim.x) {
-            const int gy = clamp_index(y0 - 1 - ry + idx / SZ, Y);
-            const int gz = clamp_index(z0 - 1 + idx % SZ, Z);
-            const long long off = src + (long long)gy * Z + gz;
-            pn[idx] = __ldg(num + off);
-            pd[idx] = __ldg(den + off);
+    __shared__ int span[2];
+    int x_first, x_last;
+    tile_mask_span<kYsTileY, kYsTileZ, kYsThreads>(
+        mask, xa, xb, y0, z0, Y, Z, span, x_first, x_last);
+    tile_zero_planes<kYsTileY, kYsTileZ, kYsThreads>(
+        out_s, xa, xb, x_first, x_last, X, Y, Z, y0, z0);
+    if (x_first > x_last) return;  // the same for every thread of the block
+    const int p_lo = max(x_first - 1, 0);
+    const int p_hi = min(x_last + 1, X - 1);
+
+    // extended cell (i, j) is global (y0 - 1 - ry + i, z0 - 1 + j), clamped;
+    // this thread loads column lj of rows li, li + kYsLoadRows, ...
+    const int lj = threadIdx.x % SZ, li = threadIdx.x / SZ;
+    const long long gz = clamp_index(z0 - 1 + lj, Z);
+    const TapsView ty{ry, st};
+    for (int p = p_lo; p <= p_hi; ++p) {
+        if (li < kYsLoadRows) {
+            const long long src = (long long)p * plane + gz;
+            for (int i = li; i < PY; i += kYsLoadRows) {
+                const long long off =
+                    src + (long long)clamp_index(y0 - 1 - ry + i, Y) * Z;
+                cp_async_f32(pn + i * SZ + lj, num + off);
+                cp_async_f32(pd + i * SZ + lj, den + off);
+            }
         }
+        cp_async_wait_all();
         __syncthreads();
 
         // s rows i0 .. i0 + RUN - 1 of column j from one walk (fir.cuh)
         float* sp = ring + (p % 3) * NC;
-        const TapsView ty{ry, st};
         for (int item = threadIdx.x; item < (SY / RUN) * SZ; item += blockDim.x) {
             const int i0 = (item / SZ) * RUN, j = item % SZ;
             const float* const col[2] = {pn + i0 * SZ + j, pd + i0 * SZ + j};
@@ -129,20 +166,20 @@ features8_ys_multi_kernel(YsScales sc, const float* __restrict__ taps,
             fir_walk<RUN, 2>(col, SZ, ty, acc);
 #pragma unroll
             for (int u = 0; u < RUN; ++u)  // no epsilon: 0/0 = NaN off the support
-                sp[(i0 + u) * SZ + j] = acc[0][u] / acc[1][u];
+                sp[(i0 + u) * SZ + j] = sweep_divide(acc[0][u], acc[1][u]);
         }
         __syncthreads();
 
         // emit plane p - 1 (its x + 1 neighbour is p), and at the last true
         // plane also plane p itself (x + 1 clamps to p)
-        for (int x = max(p - 1, xa); x <= (p == X - 1 ? p : p - 1); ++x) {
-            if (x >= xb) break;
+        for (int x = max(p - 1, x_first); x <= (p == X - 1 ? p : p - 1); ++x) {
+            if (x > x_last) break;
             emit_features8_plane<kYsTileY, kYsTileZ, false>(
                 ring, x, X, Y, Z, y0, z0, mask, out_s, k);
         }
-        // the next load overwrites pn, pd, which the FIR read before the sync
-        // above; the next FIR overwrites the s slot of plane p - 2, which the
-        // tail read before the sync after that load
+        // The next load overwrites pn, pd, which this FIR read before the
+        // barrier after it; the next FIR overwrites the s slot of plane
+        // p - 2, which this tail read before the next load's barrier.
     }
 }
 

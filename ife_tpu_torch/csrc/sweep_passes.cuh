@@ -276,8 +276,9 @@ __device__ __forceinline__ void sweep_z_pass(const float* qn, const float* qd,
 }
 
 // Emit plane p - 1 (its x + 1 neighbour is p) where it lies in [xa, xb), and
-// at the last true plane also plane p itself (x + 1 clamps to p).
-template <bool kClampMask>
+// at the last true plane also plane p itself (x + 1 clamps to p), from a
+// ring of three s planes of a (kTileY, kSweepTileZ) tile.
+template <bool kClampMask, int kTileY = kSweepTileY>
 __device__ __forceinline__ void sweep_emit(const float* ring, int p, int xa,
                                            int xb, int X, int Y, int Z, int y0,
                                            int z0, const float* mask,
@@ -285,7 +286,7 @@ __device__ __forceinline__ void sweep_emit(const float* ring, int p, int xa,
                                            const FaceClamps& fc) {
     for (int x = max(p - 1, xa); x <= (p == X - 1 ? p : p - 1); ++x) {
         if (x >= xb) break;
-        emit_features8_plane<kSweepTileY, kSweepTileZ, kClampMask>(
+        emit_features8_plane<kTileY, kSweepTileZ, kClampMask>(
             ring, x, X, Y, Z, y0, z0, mask, out, k, fc);
     }
 }
@@ -374,6 +375,117 @@ static __device__ __noinline__ void sweep_zero_planes(float* __restrict__ out,
         const long long i = x * plane + (long long)y * Z + z;
 #pragma unroll
         for (int c = 0; c < 8; ++c) out[c * n + i] = 0.0f;
+    }
+}
+
+// sweep_mask_span and sweep_zero_planes for a block of any (kTileY, kTileZ)
+// tile and kThreads threads (a multiple of 32), which deal the tile's
+// columns among them, kPer each, fixed at compile time: the xs-stream kernel
+// (tiles of 4 to 14 rows) and ys_multi (30 x 32 voxels, 288 threads) use
+// them. The sweeps keep their own forms: with these in their place (the same
+// loads, one column a thread) the sweep measured 4-12% slower under the
+// sphere mask on the H100, for a reason ptxas's report does not show.
+template <int kTileY, int kTileZ, int kThreads>
+struct TileColumns {
+    static constexpr int kColumns = kTileY * kTileZ;
+    static constexpr int kPer = (kColumns + kThreads - 1) / kThreads;
+    bool mine[kPer];        // the column is in the tile and in the volume
+    long long off[kPer];    // y * Z + z of the column
+
+    __device__ __forceinline__ TileColumns(int y0, int z0, int Y, int Z) {
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) {
+            const int c = threadIdx.x + i * kThreads;
+            const int y = y0 + c / kTileZ, z = z0 + c % kTileZ;
+            mine[i] = c < kColumns && y < Y && z < Z;
+            off[i] = (long long)y * Z + z;
+        }
+    }
+};
+
+template <int kTileY, int kTileZ, int kThreads>
+static __device__ __noinline__ void tile_mask_span(const float* __restrict__ mask,
+                                                int xa, int xb, int y0, int z0,
+                                                int Y, int Z, int* span,
+                                                int& first, int& last) {
+    constexpr int kBatch = 8;  // planes a thread looks at between barriers
+    using Cols = TileColumns<kTileY, kTileZ, kThreads>;
+    if (threadIdx.x == 0) {
+        span[0] = xb;
+        span[1] = xa - 1;
+    }
+    __syncthreads();
+    const Cols cols(y0, z0, Y, Z);
+    const long long plane = (long long)Y * Z;
+    // from the front, a batch of planes at a time, until one holds a voxel
+    // inside; then from the back. A dense mask ends both after one batch.
+    first = xb;
+    last = xa - 1;
+    for (int xs = xa; xs < xb; xs += kBatch) {
+        int lo = xb;
+#pragma unroll
+        for (int i = 0; i < Cols::kPer; ++i) {
+            if (!cols.mine[i]) continue;
+            const float* col = mask + cols.off[i];
+#pragma unroll
+            for (int j = kBatch - 1; j >= 0; --j)
+                if (xs + j < xb
+                    && clamp_unit_mask(__ldg(col + (xs + j) * plane)) != 0.0f)
+                    lo = min(lo, xs + j);
+        }
+        if (__syncthreads_or(lo < xb)) {
+            lo = __reduce_min_sync(0xffffffffu, lo);
+            if (threadIdx.x % 32 == 0) atomicMin(&span[0], lo);
+            __syncthreads();
+            first = span[0];
+            break;
+        }
+    }
+    if (first == xb) return;
+    for (int xs = xb - 1; xs >= first; xs -= kBatch) {
+        int hi = xa - 1;
+#pragma unroll
+        for (int i = 0; i < Cols::kPer; ++i) {
+            if (!cols.mine[i]) continue;
+            const float* col = mask + cols.off[i];
+#pragma unroll
+            for (int j = kBatch - 1; j >= 0; --j)
+                if (xs - j >= first
+                    && clamp_unit_mask(__ldg(col + (xs - j) * plane)) != 0.0f)
+                    hi = max(hi, xs - j);
+        }
+        if (__syncthreads_or(hi >= xa)) {
+            hi = __reduce_max_sync(0xffffffffu, hi);
+            if (threadIdx.x % 32 == 0) atomicMax(&span[1], hi);
+            __syncthreads();
+            last = span[1];
+            break;
+        }
+    }
+}
+
+// sweep_zero_planes for a (kTileY, kTileZ) tile and kThreads threads.
+template <int kTileY, int kTileZ, int kThreads>
+static __device__ __noinline__ void tile_zero_planes(float* __restrict__ out,
+                                                  int xa, int xb, int first,
+                                                  int last, int X, int Y, int Z,
+                                                  int y0, int z0) {
+    using Cols = TileColumns<kTileY, kTileZ, kThreads>;
+    const Cols cols(y0, z0, Y, Z);
+    const long long plane = (long long)Y * Z;
+    const long long n = (long long)X * plane;
+#pragma unroll
+    for (int i = 0; i < Cols::kPer; ++i) {
+        if (!cols.mine[i]) continue;
+        for (int x = xa; x < xb; ++x) {
+            if (x >= first && x <= last) {
+                x = last;
+                continue;
+            }
+            const long long v = x * plane + cols.off[i];
+#pragma unroll
+            for (int c = 0; c < 8; ++c) out[c * n + v] = 0.0f;
+        }
     }
 }
 

@@ -16,8 +16,11 @@ shared-memory ring), the y pass makes four outputs per walk over shared
 memory, the next raw plane arrives by cp.async while this one is computed,
 and a plane costs two barriers. A block sweeps only the planes of its chunk
 on which its tile holds a voxel inside the mask and stores zeros elsewhere,
-so the time follows the mask's coverage. The xs-stream kernel keeps its x ring in
-shared memory and serves the x radii beyond.
+so the time follows the mask's coverage. The xs-stream kernel serves the x
+radii beyond: its x ring (too long for a thread's registers) lives in shared
+memory, with the next plane in flight by cp.async, on a tile chosen for the
+most warps an SM holds at the radius, and it skips the planes and tails the
+mask leaves empty as the sweep does.
 
 ``fused_features8_sweep_multi`` replaces
 ife_tpu/kernels/fused.py:fused_features8_sweep_multi: S scales of the sweep
@@ -46,6 +49,10 @@ from ife_tpu_torch.ops.stencil import gaussian_smooth_axis, smooth_taps
 # sweep is instantiated for (its x queue lives in registers)
 _CELLS = (14 + 2) * (32 + 2)
 _SY, _SZ = 14 + 2, 32 + 2
+# csrc/features8_sweep.cu kXsMinTileY: the s region of the narrowest tile
+# the xs-stream kernel is instantiated for (its launcher picks among tiles of
+# 14, 8, 6 and 4 rows the one with the most warps an SM holds)
+_XS_CELLS = (4 + 2) * (32 + 2)
 _MAX_SMEM = 227 * 1024
 SWEEP_MAX_RX = 10
 # csrc/features8_sweep_multi.cu, the launcher's list: (class of the largest x radius,
@@ -63,10 +70,11 @@ def sweep_smem_bytes(rx: int, ry: int, rz: int, smooth_yz: bool = True) -> int:
     """Shared memory of one block. The sweep (csrc sweep_smem_floats): two
     buffers of the extended raw plane (c*f and c), the y pass of both, three
     s planes; its x queue is in registers, so rx does not count. The
-    xs-stream kernel (smooth_yz=False, csrc xs_stream_smem_floats): the x
-    ring of 2rx+1 numerator and denominator planes and three s planes."""
+    xs-stream kernel (smooth_yz=False, csrc xs_stream_smem_floats) at its
+    narrowest tile: the x ring of 2rx+2 numerator and denominator planes
+    (the window of 2rx+1 and the plane in flight) and three s planes."""
     if not smooth_yz:
-        return 4 * (2 * (2 * rx + 1) * _CELLS + 3 * _CELLS)
+        return 4 * (2 * (2 * rx + 2) * _XS_CELLS + 3 * _XS_CELLS)
     return 4 * (4 * (_SY + 2 * ry) * (_SZ + 2 * rz)
                 + 2 * _SY * _ybuf_stride(rz) + 3 * _CELLS)
 
@@ -88,8 +96,8 @@ def sweep_fits(sigma: float, spacing: Sequence[float],
 
 def xs_stream_fits(sigma: float, spacing: Sequence[float],
                    truncate: float = 4.5) -> bool:
-    """True when fused_features8_xs_stream takes this scale (its x ring
-    within shared memory)."""
+    """True when fused_features8_xs_stream takes this scale: its x ring
+    within a block's shared memory at the narrowest tile (rx <= 69)."""
     rx = _radii(sigma, spacing, truncate)[0]
     return sweep_smem_bytes(rx, 0, 0, smooth_yz=False) <= _MAX_SMEM
 

@@ -65,12 +65,24 @@ FEATURE_NAMES = (
 )
 NUM_FEATURES = 8  # reference ImageToEmphysemaFeaturesFilter.h:62
 
-# the x radii (voxels) up to which ife_tpu sends features8 to its line-sweep
-# kernel (ife_tpu/ops/features.py _SWEEP_RX_MAX) and to its xs-stream kernel
-# (ife_tpu/kernels/fused.py _XS_RX_MAX); both were measured on a TPU and are
-# kept so the port runs the same kernels at the same scales
+# The x radii (voxels) up to which features8 goes to the sweep kernel and to
+# the xs-stream kernel, cut where the branches' times cross under a
+# lung-like mask: chip_smoke.py's dispatch table (the features8 pass at 512^3,
+# spacing (0.78, 0.78, 1.0), every x radius 4 .. 28 and 30 .. 48, the
+# branches in turns) on an NVIDIA H100 80GB HBM3 at its 700 W limit. Under
+# the sphere mask (27% inside) the sweep is the fastest branch at every
+# radius it is instantiated for (rx 4: 3.36 ms against 5.04 for y/z +
+# xs-stream and 6.16 for normalized_conv + post; rx 10: 4.24 / 6.09 / 7.22),
+# y/z + xs-stream beats the staged pair from rx 11 to 24 (rx 11: 6.26
+# against 7.41; rx 14: 7.07 / 7.96; rx 24: 9.39 / 9.84) and loses to it from
+# rx 25 on (10.66 / 10.11), where its ring leaves an SM too few warps. Under
+# a mask of ones the staged pair is the fastest from rx 4 on (rx 4: 6.10
+# against the sweep's 6.38; rx 14: 7.82 against 9.96): the sweep and
+# xs-stream kernels skip what a sparse mask leaves empty, the staged pair
+# does not. The choice stays a function of the radius alone, as in ife_tpu;
+# the mask is not read on the host to choose.
 _SWEEP_RX_MAX = 10
-_XS_RX_MAX = 20
+_XS_RX_MAX = 24
 
 # mask dtypes torch.clamp has no kernel for, and the dtype they clamp in
 _CLAMP_AS = {torch.bool: torch.uint8, torch.uint16: torch.int32,
@@ -149,15 +161,21 @@ def normalized_convolution_auto(image, certainty, sigma,
 
 
 def fused_features8(image, mask, sigma, spacing=(1.0, 1.0, 1.0),
-                    truncate=4.5, stack=True):
+                    truncate=4.5, stack=True, branch=None):
     """features8 through the kernels (counterpart of ife_tpu's
     kernels.fused.fused_features8 dispatcher together with its sweep
     branch in features8_auto_channels), on the branch
-    features8_dispatch_branch names. Returns (8, X, Y, Z) when stack, else
-    a tuple of 8. CUDA tensors run the CUDA kernels; CPU tensors run the
-    kernels' plain twins."""
+    features8_dispatch_branch names, or on `branch` when given (one of
+    "sweep", "xs_stream", "nc_conv+post": how the branches are timed against
+    each other). Returns (8, X, Y, Z) when stack, else a tuple of 8. CUDA
+    tensors run the CUDA kernels; CPU tensors run the kernels' plain
+    twins."""
     sigma, spacing = float(sigma), tuple(spacing)
-    branch = features8_dispatch_branch(sigma, spacing, image.shape, truncate)
+    if branch is None:
+        branch = features8_dispatch_branch(sigma, spacing, image.shape,
+                                           truncate)
+    elif branch not in ("sweep", "xs_stream", "nc_conv+post"):
+        raise ValueError(f"fused_features8: no branch {branch!r}")
     if branch == "sweep":
         # the sweep clamps the mask itself: no clamp pass over the volume
         if mask.dtype in _CLAMP_AS:
@@ -238,14 +256,30 @@ def multiscale_features(
     return torch.stack(per_scale, dim=-2)
 
 
+def hessian_eig_features_channels(
+    image: torch.Tensor, spacing: Sequence[float] = (1.0, 1.0, 1.0)
+):
+    """Unsmoothed Hessian -> 6 eigen features as a TUPLE of 6 (X, Y, Z)
+    tensors, without a channel-last stack (at 512^3 that stack costs 16x the
+    kernel). The benchmark hot path ('Hessian+eig voxels/sec'): on a CUDA
+    tensor the hessian_eig kernel, whose eigen solve is the polynomial path;
+    on a CPU tensor the plain ops, eigenvalue_features(hessian(...)), the
+    trig path with the reference's diagonal branch, as
+    ife_tpu.ops.features.hessian_eig_features on every platform. Near
+    repeated eigenvalues the two paths differ by up to ~1e-4 of the
+    eigenvalue scale in f32 (the sqrt(ulp) floor of a closed-form solve);
+    elsewhere they agree to rounding."""
+    if image.is_cuda:
+        return fused_hessian_eig_stream(image, tuple(spacing), stack=False)
+    return eigenvalue_features(hessian(image, spacing)).unbind(-1)
+
+
 def hessian_eig_features(
     image: torch.Tensor, spacing: Sequence[float] = (1.0, 1.0, 1.0)
 ) -> torch.Tensor:
-    """Unsmoothed Hessian -> 6 eigen features, (X, Y, Z, 6). The benchmark
-    hot path ('Hessian+eig voxels/sec'): the hessian_eig kernel on a CUDA
-    tensor, the plain ops on a CPU tensor."""
+    """hessian_eig_features_channels stacked channel-last: (X, Y, Z, 6), the
+    layout of ife_tpu's hessian_eig_features (the same eigen paths)."""
     if image.is_cuda:
-        return torch.stack(
-            fused_hessian_eig_stream(image, tuple(spacing), stack=False),
-            dim=-1)
+        return torch.stack(hessian_eig_features_channels(image, spacing),
+                           dim=-1)
     return eigenvalue_features(hessian(image, spacing))

@@ -6,6 +6,7 @@ from ife_tpu_torch.parallel.mesh import (  # noqa: F401
     crop_from_mesh,
     default_device,
     gather_volume,
+    gather_volume_to,
     make_mesh,
     mesh_dims,
     pad_to_mesh,
@@ -18,6 +19,7 @@ from ife_tpu_torch.parallel.halo import (  # noqa: F401
 )
 from ife_tpu_torch.parallel.features import (  # noqa: F401
     features8_sharded_auto,
+    features8_sharded_channels_to,
     sharded_features8,
     sharded_hessian_eig,
     sharded_multiscale_features,

@@ -42,8 +42,8 @@ from ife_tpu_torch.ops.eigen import eigenvalue_features
 from ife_tpu_torch.ops.features import clamp_mask, features8_dispatch_branch
 from ife_tpu_torch.parallel.halo import _slab, halo_exchange, halo_slabs
 from ife_tpu_torch.parallel.mesh import (
-    BlockMesh, ShardedVolume, crop_from_mesh, gather_volume, pad_to_mesh,
-    shard_volume,
+    BlockMesh, ShardedVolume, crop_from_mesh, gather_volume, gather_volume_to,
+    pad_to_mesh, shard_volume,
 )
 
 
@@ -384,6 +384,36 @@ def features8_sharded_auto(
                             shard_volume(msk_p, mesh), sigma, mesh, spacing,
                             truncate)
     return crop_from_mesh(gather_volume(out), orig)
+
+
+def features8_sharded_channels_to(
+    image,
+    mask,
+    sigma: float,
+    mesh: BlockMesh,
+    consume,
+    spacing: Sequence[float] = (1.0, 1.0, 1.0),
+    truncate: float = 4.5,
+    dst: int = 0,
+) -> None:
+    """sharded_features8 for arbitrary volume sizes, from whole arrays (numpy
+    or tensors), ending on ONE process a channel at a time: each of the 8
+    channels is gathered to process `dst` only (gather_volume_to), cropped
+    back, and handed to consume(k, channel) there; the next is gathered once
+    consume has returned and the channel is dropped, so `dst` holds at most
+    one gathered (X, Y, Z) channel and the other processes none. Every
+    process of the mesh calls it (the exchanges and gathers are
+    collective); consume runs on `dst` alone."""
+    img_p, orig = pad_to_mesh(image, mesh)
+    msk_p, _ = pad_to_mesh(mask, mesh)
+    chans = sharded_features8(shard_volume(img_p, mesh),
+                              shard_volume(msk_p, mesh), sigma, mesh,
+                              spacing, truncate, stack=False)
+    for k, c in enumerate(chans):
+        whole = gather_volume_to(c, dst)
+        if whole is not None:
+            consume(k, crop_from_mesh(whole, orig))
+        del whole
 
 
 def sharded_multiscale_features(

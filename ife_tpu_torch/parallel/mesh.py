@@ -182,6 +182,34 @@ def gather_volume(sv: ShardedVolume) -> torch.Tensor:
     return out
 
 
+def gather_volume_to(sv: ShardedVolume, dst: int = 0):
+    """The whole array on mesh.device of process `dst` only, None on every
+    other process: the other processes send their blocks to `dst`
+    (torch.distributed send / recv), one process's blocks in flight at a
+    time, each written into place as it arrives. Beside the whole array,
+    `dst` holds at most one process's blocks of it."""
+    mesh = sv.mesh
+    if mesh.world_size == 1:
+        return gather_volume(sv)
+    mine = torch.stack([b.contiguous() for b in sv.blocks])
+    if mesh.rank != dst:
+        dist.send(mine, dst)
+        return None
+    shape = sv.shape
+    out = torch.empty(shape, dtype=sv.dtype, device=mesh.device)
+    per = mesh.n_blocks // mesh.world_size
+    for r in range(mesh.world_size):
+        if r == dst:
+            part = mine
+        else:
+            part = torch.empty_like(mine)
+            dist.recv(part, r)
+        for i in range(per):
+            out[_block_slices(mesh, r * per + i, shape)] = part[i]
+        del part
+    return out
+
+
 def pad_to_mesh(data, mesh: BlockMesh, mode: str = "edge"):
     """Edge-pad the leading spatial dims up to multiples of the mesh grid.
 

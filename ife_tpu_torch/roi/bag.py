@@ -208,14 +208,18 @@ def make_bag_sharded(
 ) -> np.ndarray:
     """make_bag over a block mesh (counterpart of ife_tpu's
     make_bag_sharded): feature volumes never touch the host. Per scale the
-    8-channel pass runs sharded (parallel/features.py); each channel is then
-    gathered on the device (a copy within one process, an all_gather across
-    processes) and the per-ROI histograms are taken from it by
+    8-channel pass runs sharded (parallel/features.py); then channel by
+    channel, one gathered channel live at a time, the channel is gathered on
+    the device (a copy within one process, an all_gather across processes)
+    and the per-ROI histograms are taken from it by
     roi_feature_histograms_device, as make_bag_device takes them; only the
-    (n_rois, 8, hist_size) frequency block is fetched. A box may straddle
-    blocks, so binning block by block would need one launch per box and
-    block; the gathered channel needs one per size class. Same layout and
-    bin semantics as make_bag; every process returns the same bag.
+    (n_rois, hist_size) frequency block of each channel is fetched. A box may
+    straddle blocks, so binning block by block would need one launch per box
+    and block; the gathered channel needs one per size class. Every masked
+    voxel of a box lands in one bin of every channel, so a channel's counts
+    divided by their own sum are make_bag_device's frequencies to the bit.
+    Same layout and bin semantics as make_bag; every process returns the
+    same bag.
     """
     from ife_tpu_torch.parallel.features import sharded_features8
     from ife_tpu_torch.parallel.mesh import (
@@ -240,17 +244,18 @@ def make_bag_sharded(
                    dtype=np.float64)
 
     for i, sigma in enumerate(sigmas):
-        feats = tuple(
-            crop_from_mesh(gather_volume(c), orig)
-            for c in sharded_features8(img_s, msk_s, float(sigma), mesh,
-                                       tuple(spacing), stack=False))
-        edges = _round_edges_f32(_edges_block(hist_edges, i), feats[0].dtype)
-        col0 = i * NUM_FEATURES * hist_size
-        for size, idxs in classes:
-            freqs = roi_feature_histograms_device(
-                feats, msk, starts_np[idxs], edges, size)
-            bag[idxs, col0 : col0 + NUM_FEATURES * hist_size] = (
-                freqs.cpu().numpy().astype(np.float64).reshape(len(idxs), -1))
+        chans = sharded_features8(img_s, msk_s, float(sigma), mesh,
+                                  tuple(spacing), stack=False)
+        edges = _round_edges_f32(_edges_block(hist_edges, i), chans[0].dtype)
+        for k, chan in enumerate(chans):
+            feat = crop_from_mesh(gather_volume(chan), orig)
+            col = (i * NUM_FEATURES + k) * hist_size
+            for size, idxs in classes:
+                freqs = roi_feature_histograms_device(
+                    (feat,), msk, starts_np[idxs], edges[k:k + 1], size)
+                bag[idxs, col : col + hist_size] = (
+                    freqs[:, 0].cpu().numpy().astype(np.float64))
+            del feat
     return bag
 
 

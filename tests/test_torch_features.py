@@ -21,6 +21,23 @@ TOL = 1e-9
 # oracle, relative to each channel's own scale)
 F32_BUDGET = (1e-6, 2e-6, 1e-5, 1e-5, 2.4e-5, 1.5e-5, 1.5e-5, 1.3e-5)
 
+# the x radii up to which the dispatcher sends features8 to the sweep and to
+# the xs-stream kernel, cut on the H100 where the sphere mask's times of the
+# branches cross (chip_smoke.py's dispatch table, PERF.md), not ife_tpu's TPU
+# thresholds
+CARD_CUT = (10, 24)
+
+
+def _rx_sigma(rx, h=SPACING[0]):
+    """A sigma whose x radius ceil(4.5 sigma / h) is rx."""
+    return (rx - 0.5) * h / 4.5
+
+
+def _branch_of(rx):
+    if rx <= CARD_CUT[0]:
+        return "sweep"
+    return "xs_stream" if rx <= CARD_CUT[1] else "nc_conv+post"
+
 
 def _inputs(shape, seed=5, radius_frac=0.45):
     img = np.array(j_synthetic_ct(shape, seed=seed, dtype=jnp.float64).data)
@@ -129,6 +146,20 @@ def test_hessian_eig_features_match_ife_tpu(shape):
 
 
 @pytest.mark.parametrize("shape", SHAPES)
+def test_hessian_eig_features_channels_are_ife_tpus_unbound(shape):
+    # the channels form (what the hessian-features CLI writes) against
+    # ife_tpu's (X, Y, Z, 6) unbound, at f64; the stacked form is its stack
+    img, _ = _inputs(shape, seed=6)
+    x = torch.from_numpy(img)
+    got = TF.hessian_eig_features_channels(x, SPACING)
+    want = np.asarray(JF.hessian_eig_features(jnp.asarray(img), SPACING))
+    assert isinstance(got, tuple) and len(got) == 6
+    assert all(g.shape == shape and g.dtype == torch.float64 for g in got)
+    assert max(_errors(torch.stack(got, -1).numpy(), want, (0, 1, 2))) <= TOL
+    assert torch.equal(torch.stack(got, -1), TF.hessian_eig_features(x, SPACING))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
 def test_hessian_eig_f32_as_accurate_as_ife_tpu(shape):
     # the repo's criterion (tests/test_kernels.py): no farther from the f64
     # result than ife_tpu's f32 path, up to a factor 2 — for the plain ops
@@ -185,6 +216,37 @@ def test_features8_auto_is_the_stacked_channels():
                        torch.stack(TF.features8_auto_channels(x, m, 1.0, SPACING), -1))
 
 
+@pytest.mark.parametrize("rx", sorted({r for c in CARD_CUT for r in (c, c + 1)}))
+def test_every_branch_gives_ife_tpus_numbers_on_each_side_of_a_cut(rx):
+    # at an x radius on each side of each cut, every branch that takes the
+    # scale (run on the CPU through the kernels' plain twins) gives ife_tpu's
+    # fused_features8 (its Pallas kernels in interpret mode) at f64, and the
+    # dispatcher takes the branch of the cut
+    from ife_tpu.kernels.fused import fused_features8 as j_fused_features8
+    from ife_tpu_torch.kernels import sweep_fits, xs_stream_fits
+
+    sigma = _rx_sigma(rx)
+    img, mask = _inputs((13, 12, 11))
+    x, m = torch.from_numpy(img), torch.from_numpy(mask)
+    want = np.moveaxis(np.asarray(j_fused_features8(
+        jnp.asarray(img), jnp.asarray(mask), sigma, SPACING, interpret=True)),
+        0, -1)
+    branches = [b for b, fits in (("sweep", sweep_fits(sigma, SPACING)),
+                                  ("xs_stream", xs_stream_fits(sigma, SPACING)),
+                                  ("nc_conv+post", True)) if fits]
+    assert TF.features8_dispatch_branch(sigma, SPACING, img.shape) == _branch_of(rx)
+    assert _branch_of(rx) in branches
+    for b in branches:
+        got = TF.fused_features8(x, m, sigma, SPACING, branch=b)
+        errs = _errors(np.moveaxis(got.numpy(), 0, -1), want, (2, 3, 4))
+        assert max(errs) <= TOL, (b, errs)
+    assert torch.equal(TF.fused_features8(x, m, sigma, SPACING),
+                       TF.fused_features8(x, m, sigma, SPACING,
+                                          branch=_branch_of(rx)))
+    with pytest.raises(ValueError, match="no branch"):
+        TF.fused_features8(x, m, sigma, SPACING, branch="tap")
+
+
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.int16, torch.uint16,
                                    torch.int32, torch.float32, torch.bool])
 def test_clamp_mask_labels(dtype):
@@ -195,20 +257,19 @@ def test_clamp_mask_labels(dtype):
 
 
 def test_names_and_single_dispatch_branch():
-    # one dispatch rule for every shape: the branch follows the x radius
-    # with ife_tpu's thresholds (no VMEM ring limits a radius on the card)
+    # one dispatch rule for every shape: the branch follows the x radius,
+    # cut at the card's radii (no VMEM ring limits a radius on the card)
     from ife_tpu.kernels.fused import _XS_RX_MAX
     from ife_tpu.ops.features import _SWEEP_RX_MAX
 
     assert TF.FEATURE_NAMES == JF.FEATURE_NAMES
     assert TF.NUM_FEATURES == JF.NUM_FEATURES == 8
-    assert (TF._SWEEP_RX_MAX, TF._XS_RX_MAX) == (_SWEEP_RX_MAX, _XS_RX_MAX)
-    want = {0.6: "sweep", 1.2: "sweep", 1.7: "sweep", 1.8: "xs_stream",
-            2.4: "xs_stream", 3.4: "xs_stream", 3.5: "nc_conv+post",
-            4.8: "nc_conv+post", 12.0: "nc_conv+post"}
-    for sigma, branch in want.items():  # rx = ceil(4.5 sigma / 0.78)
+    assert (TF._SWEEP_RX_MAX, TF._XS_RX_MAX) == CARD_CUT
+    assert (_SWEEP_RX_MAX, _XS_RX_MAX) == (10, 20)  # ife_tpu's, on a TPU
+    for rx in range(0, 40):
         for shape in ((512,) * 3, (13, 12, 11)):
-            assert TF.features8_dispatch_branch(sigma, SPACING, shape) == branch
+            assert (TF.features8_dispatch_branch(_rx_sigma(rx), SPACING, shape)
+                    == _branch_of(rx)), rx
     # a sweep whose y radius overflows a block's shared memory goes on
     assert TF.features8_dispatch_branch(1.2, (0.78, 0.01, 1.0),
                                         (64,) * 3) == "xs_stream"

@@ -187,14 +187,42 @@ def test_smooth_yz_and_xs_stream_kernels_match_plain(cuda, shape, sigma):
     num, den = K.fused_smooth_yz(img, mask, sigma, SPACING)
     pnum, pden = K.smooth_yz_plain(img, mask, sigma, SPACING)
     assert _same(num, pnum) and _same(den, pden)
-    if not K.xs_stream_fits(sigma, SPACING):  # rx 31: the x ring > 227 KB
-        assert sigma == 4.8
-        return
+    # rx 31 at sigma 4.8: the ring fits the narrowest tile (rx <= 69)
+    assert K.xs_stream_fits(sigma, SPACING)
     got = K.fused_features8_xs_stream(num, den, mask, sigma, SPACING,
                                       stack=False)
     want = K.features8_xs_stream_plain(num, den, mask, sigma, SPACING)
     assert all(bool(torch.isfinite(g).all()) for g in got)
     assert all(_same(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("name", ["empty", "one octant", "full", "sphere"])
+def test_xs_stream_and_ys_multi_skip_what_the_mask_leaves_empty(cuda, name):
+    """xs_stream at x radii that its launcher serves with each of its tiles
+    (14, 8, 6 and 4 rows) and ys_multi at S = 1 .. 3 store zeros on the
+    planes of a chunk whose tile holds no voxel inside the mask and run no
+    tail outside it: the same bits as the twins."""
+    shape = (70, 40, 45)
+    img, mask = _inputs(shape, cuda)
+    m = {"empty": torch.zeros_like(mask), "full": torch.ones_like(mask),
+         "sphere": mask, "one octant": torch.zeros_like(mask)}[name]
+    if name == "one octant":
+        m[:35, :20, :23] = 1.0
+    for rx in (11, 12, 14, 20, 28):
+        sigma = _sigma_of(rx)
+        num, den = K.smooth_yz_plain(img, m, sigma, ANISOTROPIC)
+        got = K.fused_features8_xs_stream(num, den, m, sigma, ANISOTROPIC,
+                                          stack=False)
+        want = K.features8_xs_stream_plain(num, den, m, sigma, ANISOTROPIC)
+        assert all(_same(g, w) for g, w in zip(got, want)), rx
+        assert all(bool((g[m == 0] == 0).all()) for g in got)
+    for sigmas in ((2.4,), (1.2, 3.0), (0.6, 2.4, 4.8)):
+        pairs = [K.smooth_xz_plain(img, m, s, ANISOTROPIC) for s in sigmas]
+        nums, dens = [a for a, _ in pairs], [b for _, b in pairs]
+        got = K.fused_features8_ys_multi(nums, dens, m, sigmas, ANISOTROPIC,
+                                         stack=False)
+        want = K.features8_ys_multi_plain(nums, dens, m, sigmas, ANISOTROPIC)
+        assert all(_same(g, w) for g, w in zip(_flat(got), _flat(want)))
 
 
 def test_cuda_tensors_launch_kernels_never_plain_twins(cuda, monkeypatch):

@@ -16,6 +16,7 @@ import os
 import socket
 import subprocess
 import sys
+import weakref
 
 import numpy as np
 import pytest
@@ -196,7 +197,9 @@ def test_sharded_features8_matches_ife_tpu_and_single_device(axes, sigma):
 
 
 @pytest.mark.parametrize("axes", MESHES)
-@pytest.mark.parametrize("sigma,branch", [(1.1, "sweep"), (3.3, "nc_conv+post")])
+# sigma 4.0 at 0.7 mm: x radius 26, past the xs-stream kernel's (rx <= 24),
+# where the dispatcher takes the staged pair as the sharded route does
+@pytest.mark.parametrize("sigma,branch", [(1.1, "sweep"), (4.0, "nc_conv+post")])
 def test_sharded_features8_kernel_route_equals_the_single_device_kernels(
         axes, sigma, branch):
     # use_fused=True on CPU blocks runs the plain twins of the kernels' shard
@@ -418,6 +421,92 @@ def test_make_bag_sharded_matches_host_bag_and_ife_tpu():
     np.testing.assert_allclose(
         make_bag_sharded(img, mask, (1.0,), edges, rois, mesh, SPACING), want,
         atol=1e-6)
+
+
+class _GatherMeter:
+    """Wraps parallel.mesh.gather_volume (behind make_bag_sharded and, on
+    one process, gather_volume_to): the bytes of the arrays it handed out
+    that are still alive, at their peak. A view of a gathered array (a
+    crop) keeps it alive through its ._base."""
+
+    def __init__(self, fn):
+        self.fn, self.live, self.peak, self.calls = fn, 0, 0, 0
+
+    def __call__(self, sv):
+        out = self.fn(sv)
+        n = out.numel() * out.element_size()
+        self.live += n
+        self.peak = max(self.peak, self.live)
+        self.calls += 1
+        weakref.finalize(out, self._drop, n)
+        return out
+
+    def _drop(self, n):
+        self.live -= n
+
+
+@pytest.mark.parametrize("axes", MESHES)
+def test_sharded_routes_hold_at_most_one_gathered_channel(tmp_path,
+                                                          monkeypatch, axes):
+    # make_bag_sharded and extract-features --sharded gather the 8 channels
+    # one at a time (one live), and end equal to the all-channels-at-once
+    # gathers they replace: the same bag, the same files
+    from ife_tpu_torch.cli.main import main
+    from ife_tpu_torch.parallel import mesh as mesh_mod
+    from ife_tpu_torch.roi.bag import (
+        _edges_block, _round_edges_f32, roi_feature_histograms_device,
+    )
+
+    shape = (41, 35, 24)  # padded to the mesh grid: (44, 35, 24) / (42, 36, 24)
+    img, mask = _data(shape)
+    img, mask = img.astype(np.float32), mask.astype(np.uint8)
+    rois = [ROI(r.index, r.size)
+            for r in j_generate_random_rois(mask, n=6, size=(9, 9, 9), seed=3)]
+    rng = np.random.default_rng(2)
+    edges = [np.sort(rng.normal(0, 50, 5)) for _ in range(8)]
+    mesh = _mesh(4, axes)
+    padded = P.pad_to_mesh(img, mesh)[0].shape
+    one_channel = int(np.prod(padded)) * 4
+
+    # today's bag: all eight gathered channels binned at once
+    chans = P.sharded_features8(*_shard(mesh, P.pad_to_mesh(img, mesh)[0],
+                                        P.pad_to_mesh(mask, mesh)[0]),
+                                1.0, mesh, SPACING, stack=False)
+    feats = [P.crop_from_mesh(P.gather_volume(c), shape) for c in chans]
+    starts = np.asarray([r.index for r in rois])
+    want = roi_feature_histograms_device(
+        feats, torch.from_numpy(mask), starts,
+        _round_edges_f32(_edges_block(edges, 0), torch.float32), (9, 9, 9))
+    want = want.numpy().astype(np.float64).reshape(len(rois), -1)
+    del chans, feats
+
+    meter = _GatherMeter(mesh_mod.gather_volume)
+    monkeypatch.setattr(mesh_mod, "gather_volume", meter)
+    got = make_bag_sharded(img, mask, (1.0,), edges, rois, mesh, SPACING)
+    assert np.array_equal(got, want)
+    assert (meter.calls, meter.peak, meter.live) == (8, one_channel, 0)
+
+    # extract-features --sharded: each channel gathered, written, dropped
+    d = tmp_path
+    write_volume(str(d / "img.nii.gz"),
+                 Volume(torch.from_numpy(img), spacing=SPACING))
+    write_volume(str(d / "mask.nii.gz"),
+                 Volume(torch.from_numpy(mask), spacing=SPACING))
+    meter.calls = meter.peak = 0
+    assert main(["extract-features", "-i", str(d / "img.nii.gz"), "-m",
+                 str(d / "mask.nii.gz"), "-s", "1.0", "-o", str(d / "sh"),
+                 "--sharded", "--blocks", "4"]) == 0
+    cli_mesh = _mesh(4, ("x", "y"))  # the CLI's mesh of 4 blocks: 2 x 2
+    cli_channel = int(np.prod(P.pad_to_mesh(img, cli_mesh)[0].shape)) * 4
+    assert (meter.calls, meter.peak, meter.live) == (8, cli_channel, 0)
+    monkeypatch.undo()
+    vol, msk = read_volume(str(d / "img.nii.gz")), read_volume(str(d / "mask.nii.gz"))
+    # today's files: the whole stacked array on every process, unbound
+    old = P.features8_sharded_auto(vol.data.float(), msk.data, 1.0, cli_mesh,
+                                   vol.spacing).unbind(-1)
+    for name, o in zip(FEATURE_NAMES, old):
+        assert torch.equal(read_volume(str(d / f"sh_scale_1{name}.nii.gz")).data,
+                           o), name
 
 
 def test_sharded_runs_are_bitwise_deterministic_and_order_independent():

@@ -87,9 +87,12 @@ def test_sweep_shared_memory_is_two_raw_planes_a_y_pass_and_three_s_planes(r):
     assert KS.sweep_smem_bytes(rx, ry, rz) == want
     # the x queue lives in registers: rx does not count
     assert KS.sweep_smem_bytes(0, ry, rz) == KS.sweep_smem_bytes(10, ry, rz)
-    # the xs-stream kernel keeps its x ring in shared memory
+    # the xs-stream kernel keeps its x ring in shared memory: the window of
+    # 2rx + 1 planes and the plane in flight, on the s region of its
+    # narrowest tile (4 rows)
+    xs_cells = 6 * 34
     assert KS.sweep_smem_bytes(rx, 0, 0, smooth_yz=False) == 4 * (
-        2 * (2 * rx + 1) * cells + 3 * cells)
+        2 * (2 * rx + 2) * xs_cells + 3 * xs_cells)
 
 
 def test_sweep_shared_memory_at_the_cards_scales():
@@ -104,7 +107,10 @@ def test_sweep_shared_memory_at_the_cards_scales():
 def test_xs_stream_takes_the_radii_its_ring_fits():
     assert K.xs_stream_fits(2.4, CARD_SPACING)       # rx 14
     assert K.xs_stream_fits(1.8, CARD_SPACING)       # rx 11
-    assert not K.xs_stream_fits(4.8, CARD_SPACING)   # rx 28: 254 KB
+    assert K.xs_stream_fits(4.8, CARD_SPACING)       # rx 28: 95 KB at 4 rows
+    assert KS.sweep_smem_bytes(69, 0, 0, smooth_yz=False) <= 227 * 1024
+    assert KS.sweep_smem_bytes(70, 0, 0, smooth_yz=False) > 227 * 1024
+    assert not K.xs_stream_fits(12.0, CARD_SPACING)  # rx 70
 
 
 @pytest.mark.parametrize("sigma,branch", [(0.6, "sweep"), (1.7, "sweep"),
