@@ -7,6 +7,8 @@
                                         # times of the checkout under ROOT
     python3 chip_smoke.py --dispatch-table   # phase 5's table of the three
                                         # features8 branches alone
+    python3 chip_smoke.py --probes [mode...]  # the probe phase alone (modes:
+                                        # PROBE_MODES; default all)
 
 Run from the root of a checkout; needs one CUDA device of compute
 capability 9.0, nvcc and nvidia-smi (`--ranks N`: N of them on one host, and
@@ -96,6 +98,21 @@ failing phase exits non-zero:
               sigma beside the feature pass; tap and xs beside the sweep;
               every shard mode beside its whole-volume mode; the 4-block
               and 2 x 2 sharded pass beside the single-device pass;
+     probes   the probe path (kernels/probes.py and the copy-floor variants
+              of fused_hessian_eig and fused_features8_tap: the ports of
+              benchmarks/probe10.py, probe11.py, probe_fused.py and of
+              ife_tpu's variant="copyfloor"), its counters reset before and
+              read after one call of each entry at 512^3, each output
+              against its twin bitwise; every probe kernel (both access
+              widths of pcopy1 and trivial6) bitwise against its twin at
+              (128,124,120) and (5,7,9); at 512^3 each one's ms and GB/s
+              touched beside its twin's and its library form's (torch.mul,
+              Tensor.copy_, six torch.mul, six torch.add, six clone), the
+              Hessian kernel's split (copy floor, copy6, stencil6, full),
+              probe11's ovh (5 and 20 launches between one event pair give
+              the same ms a launch) and the LDG count of each Hessian and tap
+              instantiation (cuobjdump -sass: the copy floors keep the
+              features' loads);
      dispatch the features8 pass at 512^3 through each branch that takes
               the scale (sweep, y/z passes + xs-stream, normalized_conv +
               post), in turns, under the sphere mask and a mask of ones, at
@@ -129,13 +146,16 @@ plain twin's time and its bound at 512^3. The bound is the larger of the
 bytes the function must move (each input read once, each output written
 once) over 3.35 TB/s and its arithmetic (counted from this run's shapes and
 radii) over 67 TFLOP/s, the published peaks of the H100 SXM. library_ms is
-null throughout: no single PyTorch call computes any of these functions
-(each is a chain of pads, per-axis convolutions, a divide and a closed-form
-eigen solve, or a search plus a scatter). The last line is
+the time of the PyTorch calls named in `library` that compute the same
+function on the same inputs (the probes': torch.mul, six torch.mul, six
+torch.add, six clone), null where none does: the feature kernels are each a
+chain of pads, per-axis convolutions, a divide and a closed-form eigen solve,
+or a search plus a scatter; `library` says which. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import subprocess
@@ -199,6 +219,18 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                                   "ife_tpu/kernels/fused.py:1957"),
     "features8_post_windowed_pre_padded": (
         "ife_tpu_torch/csrc/features8_post.cu", "ife_tpu/kernels/fused.py:1872"),
+    # the roofline probes: trivial6 replaces probe10.py:66 as well (the same
+    # function), the Hessian copy floor probe11.py:138 floor_window as well
+    "pcopy1": ("ife_tpu_torch/csrc/probes.cu", "benchmarks/probe11.py:92"),
+    "trivial6": ("ife_tpu_torch/csrc/probes.cu", "benchmarks/probe11.py:73"),
+    "hessian_eig_copyfloor": ("ife_tpu_torch/csrc/hessian_eig.cu",
+                              "ife_tpu/kernels/fused.py:472"),
+    "hessian_eig_copy6": ("ife_tpu_torch/csrc/hessian_eig.cu",
+                          "benchmarks/probe_fused.py:59"),
+    "hessian_eig_stencil6": ("ife_tpu_torch/csrc/hessian_eig.cu",
+                             "benchmarks/probe_fused.py:59"),
+    "features8_tap_copyfloor": ("ife_tpu_torch/csrc/features8_tap.cu",
+                                "ife_tpu/kernels/fused.py:638"),
 }
 # the kernels each main path must launch
 FEATURE_PATH = ("hessian_eig", "normalized_conv", "features8_post",
@@ -212,6 +244,33 @@ SHARDED_PATH = ("features8_sweep_clamps", "normalized_conv",
                 "features8_tap", "features8_xs", "smooth_yz",
                 "features8_sweep_multi_clamps",
                 "features8_post_windowed_pre_padded")
+# the probe kernels and the 512^3 volumes a call moves (one read of each
+# input, one write of each output)
+PROBE_VOLUMES = {"pcopy1": 2, "trivial6": 7, "hessian_eig_copyfloor": 7,
+                 "hessian_eig_copy6": 7, "hessian_eig_stencil6": 7,
+                 "features8_tap_copyfloor": 10}
+PROBE_PATH = tuple(PROBE_VOLUMES)
+PROBE_MODES = ("check", "pcopy1", "trivial6", "ovh", "hessian", "tap", "ldg")
+# floating-point operations per voxel of the stencil alone: 4 in each of the
+# three second differences, 6 in each cascaded cross term
+STENCIL6_OPS = 30
+# ms a launch at 5 and at 20 launches between one event pair may differ by
+# this share before the timing method counts as broken (probe11's ovh)
+OVH_TOL = 0.1
+# the library's calls for the same function, where there are such
+NO_LIBRARY = ("none: no PyTorch call computes this function (pads, "
+              "per-axis convolutions, a divide and a closed-form eigen solve, "
+              "or a search and a scatter)")
+LIBRARY = {
+    "pcopy1": "torch.mul(x, c)",
+    "trivial6": "six torch.mul(x, c_k) (probe11's xla6h)",
+    "hessian_eig_copyfloor": "six torch.add(x, k)",
+    "hessian_eig_copy6": "six Tensor.clone()",
+    "hessian_eig_stencil6": ("none: the edge-clamped stencil is a replicate "
+                             "pad and a conv3d (TF32 by default), not one call"),
+    "features8_tap_copyfloor": ("none: a clamp, a product and eight adds, "
+                                "one call each"),
+}
 # sharded against single-device where the two take different passes (sigma
 # 2.4): two f32 passes of one function, each within TOL of the f64 ops
 SHARD_TOL = 2e-4
@@ -1497,9 +1556,9 @@ def phase_sharded(img, mask):
     return total
 
 
-def timed(label, fn):
+def timed(label, fn, phase="full"):
     med, lo, hi = cuda_ms(fn)
-    say("full", f"{label}: {med:.3f} ms (min {lo:.3f}, max {hi:.3f})")
+    say(phase, f"{label}: {med:.3f} ms (min {lo:.3f}, max {hi:.3f})")
     return med
 
 
@@ -1902,6 +1961,13 @@ def kernel_bounds(nvox, hist_work):
     work["features8_post_windowed_pre_padded"] = (
         work["features8_post_windowed"][0] + layer,
         work["features8_post_windowed"][1])
+    # the probes: their volumes moved; a multiply or add per output voxel,
+    # the stencil's differences, the tap floor's clamp, product and 8 adds
+    ops = {"pcopy1": 1, "trivial6": 6, "hessian_eig_copyfloor": 6,
+           "hessian_eig_copy6": 0, "hessian_eig_stencil6": STENCIL6_OPS,
+           "features8_tap_copyfloor": 11}
+    for name, vols in PROBE_VOLUMES.items():
+        work[name] = (vols * vol, ops[name] * nvox)
     out = {}
     for name, (nbytes, ops) in work.items():
         t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FLOPS * 1e3
@@ -2009,6 +2075,238 @@ def phase_full_hist(img, mask, errs, results):
         torch.cuda.empty_cache()
     print(card_line(), flush=True)
     return hist_work
+
+
+def probe_pairs(img, mask, width=4):
+    """(name, kernel call, plain twin call, library call or None) of every
+    probe kernel on these inputs; the library calls of LIBRARY."""
+    from ife_tpu_torch import kernels as K
+    from ife_tpu_torch.kernels import probes as P
+
+    sp, sigma = FULL_SPACING, REPORT_SIGMA["features8_tap"]
+    c1, c6 = P.PCOPY1_SCALE, P.TRIVIAL6_SCALES
+    return [
+        ("pcopy1", lambda: P.pcopy1(img, width), lambda: P.pcopy1_plain(img),
+         lambda: torch.mul(img, c1)),
+        ("trivial6", lambda: P.trivial6(img, width),
+         lambda: P.trivial6_plain(img),
+         lambda: [torch.mul(img, c) for c in c6]),
+        ("hessian_eig_copyfloor", lambda: P.floor_window(img),
+         lambda: P.floor_window_plain(img),
+         lambda: [torch.add(img, float(k)) for k in range(6)]),
+        ("hessian_eig_copy6", lambda: P.variant(img, "copy6", sp),
+         lambda: P.variant_plain(img, "copy6", sp),
+         lambda: [img.clone() for _ in range(6)]),
+        ("hessian_eig_stencil6", lambda: P.variant(img, "stencil6", sp),
+         lambda: P.variant_plain(img, "stencil6", sp), None),
+        ("features8_tap_copyfloor",
+         lambda: K.fused_features8_tap(img, mask, sigma, sp, stack=False,
+                                       variant="copyfloor"),
+         lambda: K.features8_tap_copyfloor_plain(img, mask), None),
+    ]
+
+
+def bitwise_check(name, got, ref):
+    """Raise unless every output equals its twin's bit for bit (the sign of
+    a zero included; NaN where the twin is NaN)."""
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    ref = ref if isinstance(ref, (tuple, list)) else (ref,)
+    if len(got) != len(ref) or not all(
+            g.shape == r.shape and bool(
+                ((g.view(torch.int32) == r.view(torch.int32))
+                 | (torch.isnan(g) & torch.isnan(r))).all())
+            for g, r in zip(got, ref)):
+        raise PhaseError(f"{name}: kernel differs from its plain twin")
+
+
+def probe_path(img, mask):
+    """The probe path at 512^3: every entry of kernels/probes.py and the two
+    copy-floor variants called once, the counters reset before and read
+    after, each output held bitwise against its twin in between (the twins
+    launch nothing)."""
+    from ife_tpu_torch import kernels as K
+    from ife_tpu_torch.kernels import probes as P
+
+    sp = FULL_SPACING
+    entries = [(name, kern, plain) for name, kern, plain, _ in
+               probe_pairs(img, mask)]
+    entries += [
+        ("fused_hessian_eig copyfloor",
+         lambda: K.fused_hessian_eig(img, sp, stack=False, variant="copyfloor"),
+         lambda: K.hessian_eig_copyfloor_plain(img)),
+        ("variant full", lambda: P.variant(img, "full", sp),
+         lambda: P.variant_plain(img, "full", sp))]
+    torch.cuda.synchronize()
+    K.reset_launches()
+    for name, kern, plain in entries:
+        got = kern()
+        torch.cuda.synchronize()
+        bitwise_check(f"probe path {name} 512^3", got, plain())
+        del got
+        torch.cuda.empty_cache()
+    launches = dict(K.LAUNCHES)
+    missing = [k for k in PROBE_PATH if launches[k] < 1]
+    if missing:
+        raise PhaseError(f"probe path launched no {missing} kernel")
+    say("probes", "probe path at 512^3: every output bitwise equal to its "
+        "twin; launches " + ", ".join(f"{k} {launches[k]}" for k in PROBE_PATH)
+        + f", hessian_eig {launches['hessian_eig']}")
+    return launches
+
+
+def probe_checks(errs):
+    """Every probe kernel bitwise against its twin at (128, 124, 120) and on
+    an odd shape whose voxel count leaves a float4 tail, both widths."""
+    for shape in ((128, 124, 120), (5, 7, 9)):
+        img, mask = _inputs(shape, 0, "cuda")
+        for width in (4, 1):
+            for name, kern, plain, _ in probe_pairs(img, mask, width):
+                if width == 1 and name not in ("pcopy1", "trivial6"):
+                    continue
+                bitwise_check(f"{name} {shape} width {width}", kern(), plain())
+                errs[name].append(0.0)
+        torch.cuda.synchronize()
+        say("probes", f"{shape}: every probe kernel bitwise equal to its twin "
+            "(pcopy1 and trivial6 at widths 4 and 1)")
+
+
+def launches_ms(fn, n):
+    """ms a launch of n launches of fn between one event pair."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def sass_ldg_counts():
+    """mangled kernel name -> LDG instructions, of every Hessian and tap
+    instantiation in the built library (cuobjdump -sass), or None without
+    cuobjdump."""
+    from pathlib import Path
+
+    from ife_tpu_torch.kernels import _build
+
+    tool = Path(_build.find_nvcc()).parent / "cuobjdump"
+    if not tool.is_file():
+        return None
+    res = subprocess.run([str(tool), "-sass", str(_build.library_path())],
+                         capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        raise PhaseError(f"cuobjdump failed: {res.stderr.strip()[:400]}")
+    counts, name = {}, None
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            keep = "hessian_eig_kernel" in name or "features8_tap_kernel" in name
+            name = name if keep else None
+            if name:
+                counts[name] = 0
+        elif name and "LDG" in line:
+            counts[name] += 1
+    return counts
+
+
+def phase_probes(img, mask, errs, results, library, modes=PROBE_MODES):
+    """The probe kernels beside their twins and library forms at 512^3."""
+    import math
+
+    nvox = img.numel()
+    if "check" in modes:
+        probe_checks(errs)
+
+    def gbs(vols, ms):
+        return vols * 4 * nvox / (ms * 1e-3) / 1e9
+
+    width1 = {name: kern for name, kern, _, _ in probe_pairs(img, mask, 1)}
+    want = {"pcopy1": "pcopy1", "trivial6": "trivial6",
+            "hessian_eig_copyfloor": "hessian", "hessian_eig_copy6": "hessian",
+            "hessian_eig_stencil6": "hessian",
+            "features8_tap_copyfloor": "tap"}
+    for name, kern, plain, lib in probe_pairs(img, mask):
+        if want[name] not in modes:
+            continue
+        vols = PROBE_VOLUMES[name]
+        km = timed(f"{name} kernel", kern, "probes")
+        pm = timed(f"{name} plain", plain, "probes")
+        lm = (timed(f"{name} library: {LIBRARY[name]}", lib, "probes")
+              if lib else None)
+        got, ref = kern(), plain()
+        bitwise_check(f"{name} 512^3", got, ref)
+        ab = max(_rel(g, r)[1] for g, r in zip(
+            got if isinstance(got, tuple) else (got,),
+            ref if isinstance(ref, tuple) else (ref,)))
+        del got, ref
+        errs[name].append(0.0)
+        results[name] = dict(ms=km, plain_ms=pm, max_abs_err=ab)
+        library[name] = lm
+        say("probes", f"{name}: {km:.3f} ms, {gbs(vols, km):.0f} GB/s touched "
+            f"({vols} volumes); plain {pm:.3f} ms"
+            + (f"; library {lm:.3f} ms, {gbs(vols, lm):.0f} GB/s" if lm else ""))
+        if name in ("pcopy1", "trivial6"):
+            w1 = timed(f"{name} kernel, width 1", width1[name], "probes")
+            say("probes", f"{name} width 1 (a float a thread): {w1:.3f} ms, "
+                f"{gbs(vols, w1):.0f} GB/s, against width 4 {km:.3f} ms")
+        if name == "pcopy1":
+            cp = timed("Tensor.copy_ of one 512^3 volume",
+                       lambda: torch.empty_like(img).copy_(img), "probes")
+            say("probes", f"Tensor.copy_: {cp:.3f} ms, {gbs(2, cp):.0f} GB/s")
+        if name == "features8_tap_copyfloor":
+            from ife_tpu_torch import kernels as K
+
+            for sigma in (0.6, 1.2):
+                fl = timed(f"s={sigma} features8_tap copy floor", lambda:
+                           K.fused_features8_tap(img, mask, sigma, FULL_SPACING,
+                                                 variant="copyfloor"), "probes")
+                say("probes", f"s={sigma} features8_tap copy floor {fl:.3f} ms, "
+                    f"{gbs(vols, fl):.0f} GB/s of its 10 volumes")
+        torch.cuda.empty_cache()
+    if "hessian" in modes:
+        from ife_tpu_torch.kernels import probes as P
+
+        # the Hessian kernel's time split, in turns: traffic (copy floor,
+        # copy6), stencil, eigen solve (full); the first round after the
+        # tap has run slower by up to 0.2 ms
+        split = {}
+        for _ in range(3):
+            for mode, fn in (("copyfloor", lambda: P.floor_window(img)),
+                             ("copy6", lambda: P.variant(img, "copy6")),
+                             ("stencil6", lambda: P.variant(img, "stencil6")),
+                             ("full", lambda: P.variant(img, "full"))):
+                split.setdefault(mode, []).append(cuda_ms(fn)[0])
+        say("probes", "hessian_eig split, ms (three rounds in turns): "
+            + "; ".join(f"{m} {' / '.join(f'{t:.3f}' for t in ts)}"
+                        for m, ts in split.items()))
+    if "ovh" in modes:
+        from ife_tpu_torch.kernels import probes as P
+
+        t5 = launches_ms(lambda: P.trivial6(img), 5)
+        t20 = launches_ms(lambda: P.trivial6(img), 20)
+        say("probes", f"ovh: trivial6 {t5:.3f} ms a launch at 5 launches, "
+            f"{t20:.3f} at 20")
+        if not math.isclose(t5, t20, rel_tol=OVH_TOL):
+            raise PhaseError(f"ovh: {t5:.3f} against {t20:.3f} ms a launch")
+    if "ldg" in modes:
+        counts = sass_ldg_counts()
+        if counts is None:
+            say("probes", "LDG counts: not measured (no cuobjdump)")
+        else:
+            say("probes", "LDG per instantiation: " + "; ".join(
+                f"{k} {v}" for k, v in sorted(counts.items())))
+            feats = [v for k, v in counts.items()
+                     if "hessian_eig_kernelILi0ELi0E" in k]
+            floors = [v for k, v in counts.items()
+                      if "hessian_eig_kernelILi0ELi1E" in k
+                      or "hessian_eig_kernelILi0ELi2E" in k]
+            if len(feats) != 1 or len(floors) != 2 or set(floors) != set(feats):
+                raise PhaseError(f"the copy floors do not keep the Hessian's "
+                                 f"loads: {counts}")
+    print(card_line(), flush=True)
 
 
 def phase_profile(img, mask):
@@ -2191,8 +2489,9 @@ def sweep_times(label):
     the sweep at sigma 0.6 / 1.2 / 1.7, with clamps and under a mask of ones,
     sweep_multi, the staged pair, xs_stream at x radius 11 / 14 / 17 / 20
     (14 also under a mask of ones), ys_multi at S = 1 .. 4 (S = 2 also under
-    a mask of ones), tap and xs. Run it on two checkouts in turns to compare
-    them within one call on one card."""
+    a mask of ones), tap and xs, hessian_eig (and its copy floor where the
+    checkout has it). Run it on two checkouts in turns to compare them
+    within one call on one card."""
     from ife_tpu_torch import kernels as K
 
     if not torch.cuda.is_available():
@@ -2237,6 +2536,12 @@ def sweep_times(label):
     torch.cuda.empty_cache()
     res["tap 1.2"] = ms(lambda: K.fused_features8_tap(img, mask, 1.2, sp))
     res["xs 1.2"] = ms(lambda: K.fused_features8_xs(img, mask, 1.2, sp))
+    res["hessian_eig"] = ms(lambda: K.fused_hessian_eig_stream(img, sp,
+                                                               stack=False))
+    # a checkout from before the probes has no variant
+    if "variant" in inspect.signature(K.fused_hessian_eig).parameters:
+        res["hessian_eig copyfloor"] = ms(lambda: K.fused_hessian_eig(
+            img, sp, stack=False, variant="copyfloor"))
     print(json.dumps(res), flush=True)
 
 
@@ -2265,6 +2570,21 @@ def main() -> int:
             phase_dispatch(img, mask)
         except PhaseError as e:
             print(f"chip_smoke: --dispatch-table failed: {e}", file=sys.stderr)
+            return 1
+        return 0
+
+    if sys.argv[1:2] == ["--probes"]:
+        modes = tuple(sys.argv[2:]) or PROBE_MODES
+        try:
+            bad = [m for m in modes if m not in PROBE_MODES]
+            if bad:
+                raise PhaseError(f"unknown modes {bad}; modes: {PROBE_MODES}")
+            phase_device()
+            phase_build()
+            img, mask = _inputs(FULL, 2, "cuda")
+            phase_probes(img, mask, {k: [] for k in KERNELS}, {}, {}, modes)
+        except PhaseError as e:
+            print(f"chip_smoke: --probes failed: {e}", file=sys.stderr)
             return 1
         return 0
 
@@ -2317,21 +2637,28 @@ def main() -> int:
         phase_full_modes(img, mask, errs, results)
         hist_work = phase_full_hist(img, mask, errs, results)
         bounds = kernel_bounds(img.numel(), hist_work)
+        phase = "probes"
+        probe_launches = probe_path(img, mask)
+        launches = {k: launches[k] + probe_launches[k] for k in launches}
+        library = {}
+        phase_probes(img, mask, errs, results, library)
         phase = "profile"
         phase_profile(img, mask)
     except PhaseError as e:
         print(f"chip_smoke: phase {phase} failed: {e}", file=sys.stderr)
         return 1
-    # launches: counted in phase 4 (the four paths' runs added); ms,
-    # plain_ms and max_abs_err: measured at 512^3 (at REPORT_SIGMA for the
-    # smoothing kernels, YS_SIGMAS / SWEEP_SIGMAS for the multi-scale ones,
-    # the config-4 shape for the histogram); bound_ms: computed from the
-    # same shapes; max_rel_err: the worst of phases 3 and 5
+    # launches: counted in phase 4 (the four paths' runs added) and on the
+    # probe path; ms, plain_ms, max_abs_err and library_ms: measured at
+    # 512^3 (at REPORT_SIGMA for the smoothing kernels, YS_SIGMAS /
+    # SWEEP_SIGMAS for the multi-scale ones, the config-4 shape for the
+    # histogram); bound_ms: computed from the same shapes; max_rel_err: the
+    # worst of phases 3, 5 and probes
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep,
              launches=launches[name], **results[name],
              bound_ms=bounds[name][0], bound_by=bounds[name][1],
-             library_ms=None, max_rel_err=max(errs[name]))
+             library_ms=library.get(name), library=LIBRARY.get(name, NO_LIBRARY),
+             max_rel_err=max(errs[name]))
         for name, (src, rep) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

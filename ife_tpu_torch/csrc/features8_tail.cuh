@@ -177,11 +177,12 @@ __device__ __forceinline__ void eigen_features(
     f[5] = sqrtf(e0 * e0 + e1 * e1 + e2 * e2);
 }
 
-// The tail. h = {Dxx, Dxy, Dxz, Dyy, Dyz, Dzz} (the packed order the eigen
-// solve takes); gm = |grad s|; f = the six eigen features.
-__device__ __forceinline__ void features8_tail(
+// The stencil of the tail: h = {Dxx, Dxy, Dxz, Dyy, Dyz, Dzz} (the packed
+// order the eigen solve takes) and gm = |grad s|. Written once, here: the
+// tail and the Hessian kernel's stencil6 probe both call it.
+__device__ __forceinline__ void hessian_stencil(
     const float (&v)[3][3][3], const StencilRecip& k, float& gm,
-    float (&h)[6], float (&f)[6]) {
+    float (&h)[6]) {
     const float s0 = v[1][1][1];
     const float dxx = (v[2][1][1] - 2.0f * s0 + v[0][1][1]) * k.rxx;
     const float dyy = (v[1][2][1] - 2.0f * s0 + v[1][0][1]) * k.ryy;
@@ -204,7 +205,14 @@ __device__ __forceinline__ void features8_tail(
     h[3] = dyy;
     h[4] = dyz;
     h[5] = dzz;
-    eigen_features(dxx, dxy, dxz, dyy, dyz, dzz, f);
+}
+
+// The tail: the stencil, then f = the six eigen features of h.
+__device__ __forceinline__ void features8_tail(
+    const float (&v)[3][3][3], const StencilRecip& k, float& gm,
+    float (&h)[6], float (&f)[6]) {
+    hessian_stencil(v, k, gm, h);
+    eigen_features(h[0], h[1], h[2], h[3], h[4], h[5], f);
 }
 
 // launch shape of the one-thread-per-voxel stencil kernels: a warp spans 32

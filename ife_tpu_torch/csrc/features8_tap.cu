@@ -89,6 +89,14 @@ __host__ __device__ inline size_t tap_smem_floats(int rx, int ry, int rz) {
         + 2 * (size_t)kTapS;
 }
 
+// kCopyFloor: the roofline probe of ife_tpu/kernels/fused.py:638-645
+// (_features8_tap_kernel's variant="copyfloor"). The block loads both fields'
+// windows at the scale's radii exactly as the tap does, skips the FIR passes,
+// the divide and the tail, and writes channel k of its core as c + k (k even)
+// or c*f + k (k odd) from the loaded windows: the floor of the tap's loads
+// and stores at that sigma. The shared memory, and so the blocks an SM
+// holds, is the tap's.
+template <bool kCopyFloor>
 __global__ void __launch_bounds__(kWinThreads)
 features8_tap_kernel(const float* __restrict__ image,
                      const float* __restrict__ mask, float* __restrict__ out,
@@ -120,6 +128,18 @@ features8_tap_kernel(const float* __restrict__ image,
             win[idx] = field == 0 ? __ldg(image + off) * c : c;
         }
         __syncthreads();
+        if (kCopyFloor) {
+            // field's core cells, [TileX][TileY][TileZ], into its s region
+            float* dst = sm + field * kTapS;
+            for (int idx = threadIdx.x; idx < kTapTileX * kWinTileY * kWinTileZ;
+                 idx += blockDim.x) {
+                const int i = idx / (kWinTileY * kWinTileZ);
+                const int j = idx / kWinTileZ % kWinTileY, l = idx % kWinTileZ;
+                dst[idx] = win[((i + 1 + rx) * WY + j + 1 + ry) * WZ + l + 1 + rz];
+            }
+            __syncthreads();  // the next field's load overwrites win
+            continue;
+        }
         // x pass: the SX planes of column (j, l) from one walk
         for (int idx = threadIdx.x; idx < WYZ; idx += blockDim.x) {
             const float* const col[1] = {win + idx};
@@ -151,6 +171,21 @@ features8_tap_kernel(const float* __restrict__ image,
         }
         __syncthreads();  // the next field's load overwrites win
     }
+    if (kCopyFloor) {
+        const long long n = (long long)X * plane;
+        for (int idx = threadIdx.x; idx < kTapTileX * kWinTileY * kWinTileZ;
+             idx += blockDim.x) {
+            const int x = x0 + idx / (kWinTileY * kWinTileZ);
+            const int y = y0 + idx / kWinTileZ % kWinTileY;
+            const int z = z0 + idx % kWinTileZ;
+            if (x >= X || y >= Y || z >= Z) continue;
+            const long long off = x * plane + (long long)y * Z + z;
+#pragma unroll
+            for (int c = 0; c < 8; ++c)
+                out[c * n + off] = sm[(c & 1) ? idx : kTapS + idx] + (float)c;
+        }
+        return;
+    }
     for (int idx = threadIdx.x; idx < kTapS; idx += blockDim.x)
         sm[idx] = sm[idx] / sm[kTapS + idx];  // no epsilon: 0/0 = NaN
     __syncthreads();
@@ -159,7 +194,8 @@ features8_tap_kernel(const float* __restrict__ image,
 }
 
 // image, mask: contiguous (X, Y, Z) float32 (the mask raw, clamped to [0, 1]
-// here); out: contiguous (8, X, Y, Z); taps_*: host arrays of 2r+1 floats.
+// here); out: contiguous (8, X, Y, Z); taps_*: host arrays of 2r+1 floats;
+// copy_floor: 1 for the copy-floor probe, 0 for the features.
 extern "C" int ife_features8_tap(const float* image, const float* mask,
                                  float* out, long long X, long long Y,
                                  long long Z,
@@ -168,17 +204,19 @@ extern "C" int ife_features8_tap(const float* image, const float* mask,
                                  const float* taps_z, long long ntz,
                                  float r2x, float r2y, float r2z,
                                  float rxx, float ryy, float rzz,
-                                 cudaStream_t stream) {
+                                 long long copy_floor, cudaStream_t stream) {
     Taps tx, ty, tz;
     if (!make_taps(taps_x, ntx, &tx) || !make_taps(taps_y, nty, &ty)
         || !make_taps(taps_z, ntz, &tz))
         return (int)cudaErrorInvalidValue;
     const size_t smem = tap_smem_floats(tx.r, ty.r, tz.r) * sizeof(float);
     if (smem > (size_t)kWinMaxSmem) return (int)cudaErrorInvalidValue;
+    if (copy_floor != 0 && copy_floor != 1) return (int)cudaErrorInvalidValue;
+    const auto kernel = copy_floor ? &features8_tap_kernel<true>
+                                   : &features8_tap_kernel<false>;
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
-            features8_tap_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess) return (int)e;
     }
     const long long gx = (X + kTapTileX - 1) / kTapTileX;
@@ -186,7 +224,7 @@ extern "C" int ife_features8_tap(const float* image, const float* mask,
     const StencilRecip k{r2x, r2y, r2z, rxx, ryy, rzz};
     const dim3 grid((unsigned)((Z + kWinTileZ - 1) / kWinTileZ),
                     (unsigned)((Y + kWinTileY - 1) / kWinTileY), (unsigned)gx);
-    features8_tap_kernel<<<grid, kWinThreads, smem, stream>>>(
+    kernel<<<grid, kWinThreads, smem, stream>>>(
         image, mask, out, (int)X, (int)Y, (int)Z, tx, ty, tz, k);
     return (int)cudaGetLastError();
 }

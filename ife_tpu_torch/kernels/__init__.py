@@ -15,6 +15,8 @@ kernel launches per kernel. Counterparts of ife_tpu/kernels/fused.py:
   fused_features8_xs_stream                   -> csrc/features8_sweep.cu
   fused_features8_ys_multi                    -> csrc/features8_ys_multi.cu
   fused_features8_tap, fused_features8_xs     -> csrc/features8_tap.cu
+  fused_hessian_eig(variant="copyfloor")      -> csrc/hessian_eig.cu
+  fused_features8_tap(variant="copyfloor")    -> csrc/features8_tap.cu
 
 and of ife_tpu/kernels/histogram.py:
 
@@ -22,13 +24,19 @@ and of ife_tpu/kernels/histogram.py:
   (-> histogram_counts_kernel), plus the per-ROI
   binning (-> histogram_boxes)                -> csrc/histogram.cu
 
+of benchmarks/ (the roofline probes, kernels/probes.py):
+
+  trivial6, pcopy1                            -> csrc/probes.cu
+  floor_window, variant("copy6" / "stencil6") -> csrc/hessian_eig.cu
+
 plus fused_smooth_yz and fused_smooth_xz (csrc/normalized_conv.cu), the y/z
 passes ahead of the xs-stream kernel and the x/z passes ahead of the
 ys-multi kernel. ife_tpu's fused_features8 dispatcher is torch code here:
 ops.features.fused_features8. Every function of ife_tpu/kernels that reaches
 a Pallas kernel has its counterpart, with the shard modes of the sharded
 path (parallel/): clamps of the two sweeps, x_halo and pre_padded of the
-Hessian and post kernels, each counted apart in LAUNCHES.
+Hessian and post kernels, and the probe outputs, each counted apart in
+LAUNCHES.
 """
 from ife_tpu_torch.kernels._build import LAUNCHES, reset_launches  # noqa: F401
 from ife_tpu_torch.kernels.features8_post import (  # noqa: F401
@@ -51,6 +59,7 @@ from ife_tpu_torch.kernels.features8_sweep import (  # noqa: F401
     xs_stream_fits,
 )
 from ife_tpu_torch.kernels.features8_tap import (  # noqa: F401
+    features8_tap_copyfloor_plain,
     features8_tap_plain,
     features8_xs_plain,
     fused_features8_tap,
@@ -73,6 +82,7 @@ from ife_tpu_torch.kernels.histogram import (  # noqa: F401
 from ife_tpu_torch.kernels.hessian_eig import (  # noqa: F401
     fused_hessian_eig,
     fused_hessian_eig_stream,
+    hessian_eig_copyfloor_plain,
     hessian_eig_plain,
 )
 from ife_tpu_torch.kernels.normalized_conv import (  # noqa: F401
@@ -84,4 +94,14 @@ from ife_tpu_torch.kernels.normalized_conv import (  # noqa: F401
     normalized_conv_tiled_plain,
     smooth_xz_plain,
     smooth_yz_plain,
+)
+from ife_tpu_torch.kernels.probes import (  # noqa: F401
+    floor_window,
+    floor_window_plain,
+    pcopy1,
+    pcopy1_plain,
+    trivial6,
+    trivial6_plain,
+    variant,
+    variant_plain,
 )

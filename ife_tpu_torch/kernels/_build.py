@@ -43,8 +43,9 @@ NVCC_FLAGS = (
 # Names counted in LAUNCHES that have no C entry of their own, and the entry
 # they launch: "normalized_conv_tiled" counts the launches of
 # ife_normalized_conv that fused_normalized_conv_sweep_tiled makes, one per
-# slab; the others count the shard modes (clamps, x_halo, pre_padded) of an
-# entry apart from its whole-volume mode.
+# slab; the others count the shard modes (clamps, x_halo, pre_padded) and
+# the probe outputs (copyfloor, copy6, stencil6) of an entry apart from its
+# whole-volume features.
 COUNTED_AS = {
     "normalized_conv_tiled": "normalized_conv",
     "features8_sweep_clamps": "features8_sweep",
@@ -54,6 +55,10 @@ COUNTED_AS = {
     "features8_post_x_halo": "features8_post",
     "features8_post_pre_padded": "features8_post",
     "features8_post_windowed_pre_padded": "features8_post_windowed",
+    "hessian_eig_copyfloor": "hessian_eig",
+    "hessian_eig_copy6": "hessian_eig",
+    "hessian_eig_stencil6": "hessian_eig",
+    "features8_tap_copyfloor": "features8_tap",
 }
 
 # kernel name -> number of successful launches of its C entry point
@@ -61,7 +66,7 @@ LAUNCHES = dict.fromkeys(
     ("hessian_eig", "normalized_conv", "features8_post", "features8_sweep",
      "features8_xs_stream", "smooth_yz", "histogram", "smooth_xz",
      "features8_post_windowed", "features8_ys_multi", "features8_sweep_multi",
-     "features8_tap", "features8_xs", *COUNTED_AS), 0)
+     "features8_tap", "features8_xs", "pcopy1", "trivial6", *COUNTED_AS), 0)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
@@ -70,7 +75,7 @@ _FP = ctypes.POINTER(ctypes.c_float)
 # C signatures: every pointer and the stream as void*, dims as int64,
 # constants as float (an undeclared argument would be passed as a 32-bit int)
 _SIGNATURES = {
-    "ife_hessian_eig": [_P, _P, _P, _P, _I, _I, _I, _I] + [_F] * 6 + [_P],
+    "ife_hessian_eig": [_P, _P, _P, _P, _I, _I, _I, _I, _I] + [_F] * 6 + [_P],
     "ife_features8_post": [_P, _P, _P, _P, _P, _I, _I, _I, _I] + [_F] * 6
                           + [_P],
     "ife_normalized_conv": [_P, _P, _P, _P, _P, _I, _I, _I,
@@ -89,9 +94,11 @@ _SIGNATURES = {
     "ife_features8_sweep_multi": [_P, _P, _P, _I, _I, _I, _I, _P, _P]
                                  + [_I] * 4 + [_F] * 6 + [_P],
     "ife_features8_tap": [_P, _P, _P, _I, _I, _I, _FP, _I, _FP, _I, _FP, _I]
-                         + [_F] * 6 + [_P],
+                         + [_F] * 6 + [_I, _P],
     "ife_features8_xs": [_P, _P, _P, _P, _I, _I, _I, _FP, _I] + [_F] * 6
                         + [_P],
+    "ife_pcopy1": [_P, _P, _I, _I, _F, _P],
+    "ife_trivial6": [_P] * 7 + [_I, _I] + [_F] * 6 + [_P],
 }
 
 MAX_TAPS = 257    # csrc/fir.cuh kMaxTaps: radius <= 128 voxels

@@ -8,6 +8,11 @@ thread block smoothing its own halo window along x, then y, then z.
 the y and z passes outside (fused_smooth_yz), then one kernel with the x pass
 over a block's window, the divide and the tail.
 
+``fused_features8_tap(..., variant="copyfloor")`` is the tap's roofline
+probe (ife_tpu/kernels/fused.py:638-645): the tap's window loads at the
+scale's radii, then channel k of the core written as m + k (k even) or
+image*m + k (k odd), m the clamped mask; counted as features8_tap_copyfloor.
+
 Both are direct entries that nothing dispatches, as in ife_tpu: the sweep
 kernel computes the same function without re-reading halos. A block's window
 must fit its shared memory; beyond ``tap_fits`` / ``xs_fits`` the wrappers
@@ -78,6 +83,14 @@ def features8_tap_plain(image: torch.Tensor, mask: torch.Tensor, sigma: float,
     return features8_post_plain(s, m, spacing)
 
 
+def features8_tap_copyfloor_plain(image: torch.Tensor, mask: torch.Tensor):
+    """The tap copy floor's plain twin: m + k for even k, image*m + k for odd
+    k, k = 0..7, with m the mask clamped to [0, 1]. Tuple of eight."""
+    m = torch.clamp(mask.to(image.dtype), 0, 1)
+    num = image * m
+    return tuple((num if k % 2 else m) + float(k) for k in range(8))
+
+
 # the xs kernel's plain twin smooths y, z, then x, divides and runs the tail:
 # the sweep's twin
 features8_xs_plain = features8_sweep_plain
@@ -85,18 +98,30 @@ features8_xs_plain = features8_sweep_plain
 
 def fused_features8_tap(image: torch.Tensor, mask: torch.Tensor, sigma: float,
                         spacing: Sequence[float] = (1.0, 1.0, 1.0),
-                        truncate: float = 4.5, stack: bool = True):
+                        truncate: float = 4.5, stack: bool = True,
+                        variant: str = "features"):
     """features8 of `image` at one scale in one launch, each thread block on
     its own halo window; `mask` is clamped to [0, 1] (the certainty and,
     nonzero, the output mask). An (8, X, Y, Z) tensor when stack, else a
     tuple of eight.
 
+    variant: "features" (the default), or "copyfloor", the roofline probe:
+    the same window loads at this scale, and channel k written as m + k (k
+    even) or image*m + k (k odd), m the clamped mask. ife_tpu's "concat"
+    and "roll" are Mosaic lane-shift choices with the same outputs and raise
+    here, like any other value.
+
     CUDA tensors (contiguous float32 of one shape) launch the kernel, or
     raise when the window does not fit (tap_fits); CPU tensors run the plain
     twin; any other input raises.
     """
+    if variant not in ("features", "copyfloor"):
+        raise ValueError("fused_features8_tap: variant must be 'features' or "
+                         f"'copyfloor', got {variant!r}")
+    copy_floor = variant == "copyfloor"
     if use_plain_twin("fused_features8_tap", image):
-        feats = features8_tap_plain(image, mask, sigma, spacing, truncate)
+        feats = (features8_tap_copyfloor_plain(image, mask) if copy_floor else
+                 features8_tap_plain(image, mask, sigma, spacing, truncate))
         return torch.stack(feats, dim=0) if stack else feats
     check_cuda_volume("fused_features8_tap image", image)
     check_cuda_volume("fused_features8_tap mask", mask, shape=image.shape)
@@ -111,7 +136,9 @@ def fused_features8_tap(image: torch.Tensor, mask: torch.Tensor, sigma: float,
     out = torch.empty((8, X, Y, Z), dtype=image.dtype, device=image.device)
     launch("features8_tap", image.device,
            image.data_ptr(), mask.data_ptr(), out.data_ptr(), X, Y, Z,
-           tx, ntx, ty, nty, tz, ntz, *stencil_reciprocals(spacing))
+           tx, ntx, ty, nty, tz, ntz, *stencil_reciprocals(spacing),
+           int(copy_floor),
+           count_as="features8_tap_copyfloor" if copy_floor else None)
     return out if stack else tuple(out.unbind(0))
 
 

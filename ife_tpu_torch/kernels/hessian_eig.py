@@ -5,7 +5,9 @@ Replaces ife_tpu/kernels/fused.py:fused_hessian_eig_stream (and
 fused_hessian_eig, the same math through TPU DMA windows — here one kernel
 under both names), with their shard modes x_halo and pre_padded. Bound by
 bytes on the H100 (1 read + 6 writes of f32 per voxel); see the source for
-the design.
+the design. The kernel's probe outputs (``HESSIAN_OUTPUTS``: the copy floor
+of fused_hessian_eig's variant="copyfloor", and probe_fused's copy6 and
+stencil6, kernels/probes.py) are counted apart in LAUNCHES.
 """
 from __future__ import annotations
 
@@ -77,6 +79,30 @@ def hessian_eig_plain(x: torch.Tensor,
     return with_shard_halo(plain, x, x_halo, pre_padded)
 
 
+# csrc/hessian_eig.cu HessianOutput: what the kernel writes per voxel
+HESSIAN_OUTPUTS = {"features": 0, "copyfloor": 1, "copy6": 2, "stencil6": 3}
+
+
+def hessian_eig_copyfloor_plain(x: torch.Tensor):
+    """The copy floor's plain twin: x + k, k = 0..5 (the add kept at k = 0,
+    so -0 turns +0 as in the kernel). Tuple of six tensors."""
+    return tuple(x + float(k) for k in range(6))
+
+
+def hessian_output_kernel(name: str, x: torch.Tensor, output: str,
+                          spacing: Sequence[float] = (1.0, 1.0, 1.0)):
+    """Launch the Hessian kernel on the whole volume x (a CUDA tensor) with
+    the probe output `output` of HESSIAN_OUTPUTS; a (6, X, Y, Z) tensor.
+    Counted in LAUNCHES as hessian_eig_<output>."""
+    check_cuda_volume(name, x)
+    X, Y, Z = x.shape
+    out = torch.empty((6, X, Y, Z), dtype=x.dtype, device=x.device)
+    launch("hessian_eig", x.device, x.data_ptr(), None, None, out.data_ptr(),
+           X, Y, Z, 0, HESSIAN_OUTPUTS[output], *stencil_reciprocals(spacing),
+           count_as=f"hessian_eig_{output}")
+    return out
+
+
 def fused_hessian_eig_stream(x: torch.Tensor,
                              spacing: Sequence[float] = (1.0, 1.0, 1.0),
                              stack: bool = True, x_halo=None,
@@ -114,12 +140,38 @@ def fused_hessian_eig_stream(x: torch.Tensor,
     launch("hessian_eig", x.device, x.data_ptr(),
            None if lo is None else lo.data_ptr(),
            None if hi is None else hi.data_ptr(), out.data_ptr(), X, Y, Z,
-           mode, *stencil_reciprocals(spacing),
+           mode, HESSIAN_OUTPUTS["features"], *stencil_reciprocals(spacing),
            count_as=(None, "hessian_eig_x_halo", "hessian_eig_pre_padded")[mode])
     return out if stack else tuple(out.unbind(0))
 
 
-# ife_tpu's windowed variant computes the same function; its DMA window was
-# a TPU artefact, so on the card it is this one kernel (ife_tpu's has
-# pre_padded alone of the two shard modes)
-fused_hessian_eig = fused_hessian_eig_stream
+def fused_hessian_eig(x: torch.Tensor,
+                      spacing: Sequence[float] = (1.0, 1.0, 1.0),
+                      stack: bool = True, x_halo=None,
+                      pre_padded: bool = False, variant: str = "features"):
+    """ife_tpu's windowed fused_hessian_eig: the same function as
+    fused_hessian_eig_stream (its DMA window was a TPU artefact, so on the
+    card it is the one kernel; ife_tpu's has pre_padded alone of the two
+    shard modes), plus its roofline probe.
+
+    variant: "features" (the default) computes the features;
+    "copyfloor" writes x + k as channel k = 0..5 through the kernel's own
+    loads and stores (ife_tpu/kernels/fused.py:472-478), whole volume only.
+    ife_tpu's "concat" and "roll" choose how Mosaic shifts lanes, with the
+    same outputs: the card has no counterpart, and they raise here like any
+    other value.
+    """
+    name = "fused_hessian_eig"
+    if variant == "features":
+        return fused_hessian_eig_stream(x, spacing, stack, x_halo, pre_padded)
+    if variant != "copyfloor":
+        raise ValueError(f"{name}: variant must be 'features' or 'copyfloor', "
+                         f"got {variant!r}")
+    if x_halo is not None or pre_padded:
+        raise ValueError(f"{name}: variant='copyfloor' takes the whole volume "
+                         "(no x_halo, no pre_padded)")
+    if use_plain_twin(name, x):
+        feats = hessian_eig_copyfloor_plain(x)
+        return torch.stack(feats, dim=0) if stack else feats
+    out = hessian_output_kernel(name, x, "copyfloor", spacing)
+    return out if stack else tuple(out.unbind(0))

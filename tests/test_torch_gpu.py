@@ -620,6 +620,94 @@ def test_tap_and_xs_raise_beyond_their_windows(cuda):
     assert K.fused_features8_xs(img, mask, 4.8, (0.78, 0.78, 1.0)).shape == (8, 13, 12, 11)
 
 
+# ---------------------------------------------------------------------------
+# the roofline probes (kernels/probes.py) and the copy-floor variants
+# ---------------------------------------------------------------------------
+
+# (128, 124, 120) and extents that are no multiple of a warp, a block or 4:
+# 5 * 7 * 9 = 315 voxels leave a float4 tail of 3
+PROBE_SHAPES = [(128, 124, 120), (13, 12, 11), (5, 7, 9)]
+
+
+def _bits(got, ref):
+    """Bit for bit, the sign of a zero included."""
+    return all(torch.equal(g.view(torch.int32), r.view(torch.int32))
+               for g, r in zip(got, ref))
+
+
+def _with_signed_zeros(img):
+    x = img.clone()
+    x.view(-1)[::97] = -0.0
+    return x
+
+
+@pytest.mark.parametrize("shape", PROBE_SHAPES)
+@pytest.mark.parametrize("width", [1, 4])
+def test_scaled_copy_probes_equal_their_twins(cuda, shape, width):
+    from ife_tpu_torch.kernels import probes as P
+
+    x = _with_signed_zeros(_inputs(shape, cuda)[0])
+    before = dict(K.LAUNCHES)
+    assert _bits(P.trivial6(x, width), P.trivial6_plain(x))
+    assert _bits([P.pcopy1(x, width)], [P.pcopy1_plain(x)])
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["trivial6"] - before["trivial6"] == 1
+    assert K.LAUNCHES["pcopy1"] - before["pcopy1"] == 1
+
+
+@pytest.mark.parametrize("shape", PROBE_SHAPES)
+@pytest.mark.parametrize("mode", ["copyfloor", "copy6", "stencil6"])
+def test_hessian_probe_outputs_equal_their_twins(cuda, shape, mode):
+    from ife_tpu_torch.kernels import probes as P
+
+    x = _with_signed_zeros(_inputs(shape, cuda)[0])
+    before = dict(K.LAUNCHES)
+    if mode == "copyfloor":
+        got = P.floor_window(x)
+        assert _bits(K.fused_hessian_eig(x, SPACING, variant="copyfloor"),
+                     torch.stack(K.hessian_eig_copyfloor_plain(x)))
+        want, launches = P.floor_window_plain(x), 2
+    else:
+        got = P.variant(x, mode, SPACING)
+        want, launches = P.variant_plain(x, mode, SPACING), 1
+    assert _bits(got, want)
+    torch.cuda.synchronize()
+    name = f"hessian_eig_{mode}"
+    assert {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES} == {
+        k: launches if k == name else 0 for k in K.LAUNCHES}
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(128, 124, 120), (5, 40, 33)])
+@pytest.mark.parametrize("sigma", [0.6, 1.2])
+def test_tap_copyfloor_equals_its_twin(cuda, shape, sigma):
+    img, mask = _inputs(shape, cuda)
+    labels = mask * 2.0 - 0.5  # -0.5 and 1.5: clamped to 0 and 1
+    before = K.LAUNCHES["features8_tap_copyfloor"]
+    got = K.fused_features8_tap(img, labels, sigma, SPACING, stack=False,
+                                variant="copyfloor")
+    assert _bits(got, K.features8_tap_copyfloor_plain(img, labels))
+    assert K.LAUNCHES["features8_tap_copyfloor"] - before == 1
+
+
+def test_probe_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from ife_tpu_torch.kernels import probes as P
+
+    img, _ = _inputs((13, 12, 11), cuda)
+    offset = torch.empty(img.numel() + 1, device=cuda)[1:].view(img.shape)
+    offset.copy_(img)
+    with pytest.raises(ValueError, match="aligned"):
+        P.trivial6(offset)
+    assert _bits(P.trivial6(offset, width=1), P.trivial6_plain(offset))
+    with pytest.raises(ValueError, match="float32"):
+        P.pcopy1(img.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        P.variant(img.transpose(0, 2), "stencil6")
+    with pytest.raises(ValueError, match="whole volume"):
+        K.fused_hessian_eig(img, variant="copyfloor", pre_padded=True)
+    with pytest.raises(ValueError, match="tap_fits"):
+        K.fused_features8_tap(img, img, 2.4, variant="copyfloor")
+
+
 @pytest.mark.parametrize("shape", SHAPES + [(5, 40, 33)])
 def test_shard_modes_equal_their_twins(cuda, shape):
     img, mask = _inputs(shape, cuda)
@@ -677,9 +765,14 @@ def test_sharded_path_equals_the_single_device_kernels(cuda, axes):
         counts = {k: v for k, v in K.LAUNCHES.items() if v}
         if features8_dispatch_branch(sigma, (1, 1, 1), None) == "sweep":
             assert counts == {"features8_sweep_clamps": 4}
+            branch = "sweep"
         else:
             assert counts == {"normalized_conv": 4, post: 4}
-        assert _same(got, fused_features8(img, mask, sigma))
+            branch = "nc_conv+post"
+        # the sharded route takes the staged pair wherever the sweep does not
+        # serve the scale; the single-device dispatcher may take xs_stream
+        # there (sigma 4.8 at 1 mm: rx 22), so it is held to that branch
+        assert _same(got, fused_features8(img, mask, sigma, branch=branch))
     K.reset_launches()
     got = P.gather_volume(P.sharded_hessian_eig(xi, mesh, SPACING)).movedim(-1, 0)
     assert K.LAUNCHES["hessian_eig_x_halo" if axes == ("x",)

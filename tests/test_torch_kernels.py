@@ -59,7 +59,8 @@ def test_hessian_eig_unstacked_and_alias():
     x = torch.from_numpy(img)
     stacked = K.fused_hessian_eig_stream(x, SPACING)
     parts = K.fused_hessian_eig(x, SPACING, stack=False)
-    assert K.fused_hessian_eig is K.fused_hessian_eig_stream
+    # fused_hessian_eig's default variant is the stream kernel's function
+    assert torch.equal(K.fused_hessian_eig(x, SPACING), stacked)
     assert len(parts) == 6
     assert all(torch.equal(p, s) for p, s in zip(parts, stacked))
 
@@ -214,7 +215,8 @@ def test_build_is_keyed_by_the_sources():
     assert {p.name for p in _build._sources()[0]} == {
         "hessian_eig.cu", "normalized_conv.cu", "features8_post.cu",
         "features8_sweep.cu", "features8_sweep_multi.cu",
-        "features8_ys_multi.cu", "histogram.cu", "features8_tap.cu"}
+        "features8_ys_multi.cu", "histogram.cu", "features8_tap.cu",
+        "probes.cu"}
     assert {p.name for p in _build._sources()[1]} == {
         "features8_tail.cuh", "fir.cuh", "s_ring.cuh", "sweep_passes.cuh"}
     assert set(_build.LAUNCHES) == {"hessian_eig", "normalized_conv",
@@ -232,10 +234,15 @@ def test_build_is_keyed_by_the_sources():
                                     "hessian_eig_pre_padded",
                                     "features8_post_x_halo",
                                     "features8_post_pre_padded",
-                                    "features8_post_windowed_pre_padded"}
+                                    "features8_post_windowed_pre_padded",
+                                    "pcopy1", "trivial6",
+                                    "hessian_eig_copyfloor",
+                                    "hessian_eig_copy6",
+                                    "hessian_eig_stencil6",
+                                    "features8_tap_copyfloor"}
     # every C entry the wrappers launch has a declared signature; the tiled
-    # normalized convolution and the shard modes count launches of another
-    # name's entry (COUNTED_AS)
+    # normalized convolution, the shard modes and the probe outputs count
+    # launches of another name's entry (COUNTED_AS)
     assert {f"ife_{k}" for k in _build.LAUNCHES
             if k not in _build.COUNTED_AS} == set(_build._SIGNATURES)
     assert {f"ife_{k}" for k in _build.COUNTED_AS.values()} <= set(
