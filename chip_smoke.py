@@ -5,6 +5,9 @@
     python3 chip_smoke.py --ranks 4     # the sharded path, one rank per card
     python3 chip_smoke.py --sweep-times [ROOT]   # the sweep family's 512^3
                                         # times of the checkout under ROOT
+    python3 chip_smoke.py --hist-times [ROOT]    # the histogram's 512^3
+                                        # shapes, call ms and device ms, of
+                                        # the checkout under ROOT
     python3 chip_smoke.py --dispatch-table   # phase 5's table of the three
                                         # features8 branches alone
     python3 chip_smoke.py --probes [mode...]  # the probe phase alone (modes:
@@ -32,7 +35,11 @@ failing phase exits non-zero:
               a thin volume whose y radius exceeds Y; the histogram
               kernel over the features8 channels, whole-volume and box
               forms, E 1/31/4096, weighted and not, with NaN, +-inf and
-              duplicate edges, once on its global-memory path; the windowed
+              duplicate edges, once on its global-memory path, and on the
+              cases of its design (hist_case_checks: a constant field, E = 1,
+              8 x 4096 edges, views at an odd offset, NaN, int32 weights, an
+              empty mask, runs empty / full / half full, conflict-free
+              values, boxes at odd starts); the windowed
               kernels features8_tap and features8_xs (also on a thin volume),
               and every shard mode against its twin in that mode: clamps of
               the two sweeps (the default clamps also against the call
@@ -92,10 +99,12 @@ failing phase exits non-zero:
               the per-scale passes they replace, the four-scale stack at
               256^3 (bench.py's random 75% mask) and 512^3 both ways, the
               device's copy rate, and
-              the histogram kernel at the bench.py config-4 shape (8
-              channels, 31 edges, mask weights: the sphere, and bench.py's
-              random 75% mask), at 4096 edges, and on 50 ROIs of 41^3 per
-              sigma beside the feature pass; tap and xs beside the sweep;
+              the histogram kernel on the shapes of hist_time_shapes (the
+              bench.py config-4 shape: 8 channels, 31 edges, mask weights,
+              under the sphere and bench.py's random 75% mask, at E = 1 and
+              on conflict-free values; 1 and 8 channels of 4096 edges; 50
+              ROIs of 41^3 per sigma, beside the feature pass), each against
+              its twin; tap and xs beside the sweep;
               every shard mode beside its whole-volume mode; the 4-block
               and 2 x 2 sharded pass beside the single-device pass;
      probes   the probe path (kernels/probes.py and the copy-floor variants
@@ -126,6 +135,16 @@ failing phase exits non-zero:
               multiscale_features8_fused pass, one sweep_multi pass and one
               4-block sharded features8 pass at sigma 1.2 and 4.8
               (torch.profiler, 3 calls each).
+
+Two yardsticks: "call ms" (cuda_ms) starts each call on an idle card, so
+it holds the wrapper's host time, what a caller waits for; "device ms"
+(device_ms) times 10 back-to-back calls behind a torch.cuda._sleep, so the
+host's time hides behind queued work and what is left is the card's. Every
+kernel of the {"kernels": ...} line has both (ms, device_ms; library_ms,
+library_device_ms); the features8 passes, the stacks and the CLI stay on
+call ms. The probe phase times pcopy1 and trivial6 at both widths beside
+torch.mul / Tensor.copy_ / six torch.mul in turns on the device yardstick
+(one JSON line each).
 
 Kernel vs plain twin: the kernels are built without FMA contraction and
 keep their twins' association, so each must equal its twin to the bit (NaN
@@ -320,6 +339,11 @@ BRANCH_KERNELS = {"sweep": ("features8_sweep",),
 # float32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = 67e12
+# the device yardstick (device_ms): calls between one event pair, and the
+# clock cycles of the torch.cuda._sleep queued ahead of them (~2 ms at the
+# H100's 1.98 GHz boost clock), longer than the host takes to enqueue them
+DEVICE_CALLS = 10
+DEVICE_SLEEP_CYCLES = 4_000_000
 # floating-point operations per voxel of the shared tail, counted from
 # csrc/features8_tail.cuh: 42 in the differences and the gradient
 # magnitude, ~110 in the eigen solve and its features
@@ -411,6 +435,32 @@ def cuda_ms(fn, reps=5):
         torch.cuda.synchronize()
         ts.append(a.elapsed_time(b))
         del out
+    ts.sort()
+    return ts[len(ts) // 2], ts[0], ts[-1]
+
+
+def device_ms(fn, calls=DEVICE_CALLS, reps=5):
+    """(median, min, max) ms a call of fn on the device: one warm call, then
+    `reps` runs of `calls` back-to-back calls between one event pair, each
+    run behind a torch.cuda._sleep of DEVICE_SLEEP_CYCLES (~2 ms) so that the
+    card has work queued while the host enqueues the calls: the wrappers'
+    host time (argument checks, allocations, the ctypes call) hides behind
+    the device's work unless a call waits for the card. cuda_ms, which
+    starts each call on an idle card, is the call's time as a caller waits
+    for it."""
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(DEVICE_SLEEP_CYCLES)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        ts.append(a.elapsed_time(b) / calls)
     ts.sort()
     return ts[len(ts) // 2], ts[0], ts[-1]
 
@@ -838,6 +888,7 @@ def phase_kernels(errs):
             say("kernels", f"{shape} spacing {sp}, bit-equal to the twins: "
                 + "; ".join(line))
         hist_kernel_checks(img, mask, shape, errs)
+    hist_case_checks(errs)
     # a thin volume: both y radii (14 and 28 voxels) exceed Y = 9, every
     # tap row is a clamped one (the dense-dot branch of ife_tpu's _banded_dot)
     img, mask = _inputs((40, 9, 33), 0, dev)
@@ -916,11 +967,11 @@ def hist_kernel_checks(img, mask, shape, errs):
             errs["histogram"].append(rel)
             if wname == "mask" and int(got[-1].sum()) != 0:
                 raise PhaseError("histogram: a box with no mask counted voxels")
-        line.append(f"E={E} (copies {_plan(8, E, img.numel(), 1, img.device)[0]})")
+        line.append(f"E={E} ({_plan(8, E, img.numel())})")
     if shape == (64, 64, 64):
         wide = chans * 8
         e = hist_edges(wide, 4096)
-        if _plan(64, 4096, img.numel(), 1, img.device)[0] != 0:
+        if _plan(64, 4096, img.numel()).copies != 0:
             raise PhaseError("64 x 4097 bins should take the global path")
         rel, _ = kernel_check("histogram global path 64 x 4096",
                               K.histogram_counts_multi(wide, e, weights["mask"]),
@@ -931,6 +982,76 @@ def hist_kernel_checks(img, mask, shape, errs):
     torch.cuda.synchronize()
     say("kernels", f"{shape} histogram equal to its twin, whole volume and "
         f"{len(starts)} boxes, unweighted/mask/int32 weights: " + ", ".join(line))
+
+
+def hist_case_checks(errs):
+    """The histogram kernel against its twin, counts equal, on the cases its
+    design must get right: a constant field (every lane of a run in one
+    bin), E = 1, 8 channels of 4096 edges (bins in shared memory, edges
+    read through L1), channels that are views at an odd 4-byte offset with
+    n % 4 != 0, NaN values, int32 weights up to 999, an empty mask, a mask
+    whose runs of 32 are empty, full or half full, conflict-free values,
+    and boxes at odd starts (rows shorter and longer than a warp)."""
+    from ife_tpu_torch import kernels as K
+    from ife_tpu_torch.kernels.histogram import _plan
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    n = 100_003
+    base = torch.randn(8 * n + 1, device=dev, generator=g) * 300.0 - 600.0
+    views = [base[1 + c * n: 1 + (c + 1) * n] for c in range(8)]
+    e31 = torch.linspace(-1200.0, 600.0, 31, dtype=torch.float64)
+    runs = torch.arange(n, device=dev) // 32
+    half = torch.rand(n, device=dev, generator=g) > 0.5
+    patchy = ((runs % 3 == 0) | ((runs % 3 == 1) & half)).to(torch.uint8)
+    ones = torch.ones(n, dtype=torch.uint8, device=dev)
+    nan = views[0].clone()
+    nan[::7] = float("nan")
+    fine = torch.linspace(-1500.0, 300.0, 4096, dtype=torch.float64)
+    cases = [
+        ("a constant field", [torch.full((n,), 0.5, device=dev)] * 8, e31, ones),
+        ("E = 1", views, torch.tensor([-600.0], dtype=torch.float64), patchy),
+        ("8 channels x 4096 edges", views, fine, ones),
+        ("views at an odd offset, n % 4 = 3", views, e31, patchy),
+        ("NaN values", [nan] + views[1:], e31, ones),
+        ("int32 weights up to 999", views, e31,
+         torch.randint(0, 1000, (n,), dtype=torch.int32, device=dev,
+                       generator=g)),
+        ("an empty mask", views, e31, torch.zeros_like(ones)),
+        ("runs empty, full and half full", views, e31, patchy),
+        ("conflict-free values", conflict_free_channels(ones, 8, e31), e31,
+         ones),
+    ]
+    if (_plan(8, 4096, n)[:2] != (False, 1)
+            or _plan(64, 4096, n).copies != 0):
+        raise PhaseError("histogram plan: 8 x 4096 edges should keep the bins "
+                         "alone in shared memory, 64 x 4096 take the global form")
+    for label, chans, e, w in cases:
+        got = K.histogram_counts_multi(chans, e, w)
+        rel, _ = kernel_check(f"histogram {label}", got,
+                              K.histogram_counts_multi_plain(chans, e, w))
+        errs["histogram"].append(rel)
+        if label == "an empty mask" and int(got.sum()) != 0:
+            raise PhaseError("histogram: an empty mask counted voxels")
+    shape = (37, 29, 43)
+    vol = [torch.randn(shape, device=dev, generator=g) * 300.0 - 600.0
+           for _ in range(8)]
+    wv = (torch.rand(shape, device=dev, generator=g) > 0.4).to(torch.uint8)
+    wi = torch.randint(0, 5, shape, dtype=torch.int32, device=dev, generator=g)
+    e8 = torch.linspace(-1200.0, 600.0, 31, dtype=torch.float64).expand(8, 31)
+    for size in ((17, 15, 13), (3, 5, 33), (1, 1, 43), (11, 9, 41)):
+        starts = [(1, 3, 5), (7, 1, 0), (36 - size[0], 28 - size[1],
+                                        43 - size[2]), (5, 11, 1)]
+        for w in (None, wv, wi):
+            rel, _ = kernel_check(
+                f"histogram boxes {size} at odd starts",
+                K.histogram_boxes(vol, w, starts, size, e8),
+                K.histogram_boxes_plain(vol, w, starts, size, e8))
+            errs["histogram"].append(rel)
+    torch.cuda.synchronize()
+    say("kernels", "histogram equal to its twin: " + "; ".join(
+        c[0] for c in cases) + "; boxes at odd starts of 17x15x13, 3x5x33, "
+        "1x1x43 and 11x9x41, unweighted / uint8 / int32 weights")
 
 
 def dispatched_kernels(sigmas):
@@ -1562,6 +1683,16 @@ def timed(label, fn, phase="full"):
     return med
 
 
+def timed_both(label, fn, phase="full"):
+    """(call ms, device ms), medians of cuda_ms and device_ms, both
+    printed."""
+    med, lo, hi = cuda_ms(fn)
+    dmed, dlo, dhi = device_ms(fn)
+    say(phase, f"{label}: call {med:.3f} ms (min {lo:.3f}, max {hi:.3f}); "
+        f"device {dmed:.3f} ms (min {dlo:.3f}, max {dhi:.3f})")
+    return med, dmed
+
+
 def phase_full(img, mask, errs, results):
     from ife_tpu_torch import kernels as K
     from ife_tpu_torch.ops.features import (
@@ -1576,14 +1707,16 @@ def phase_full(img, mask, errs, results):
     say("full", f"copy rate {2 * 4 * nvox / (copy_ms * 1e-3) / 1e9:.0f} GB/s "
         "(read + write)")
 
-    k_ms = timed("hessian_eig kernel 512^3",
-                 lambda: K.fused_hessian_eig_stream(img, sp, stack=False))
+    k_ms, k_dev = timed_both("hessian_eig kernel 512^3",
+                             lambda: K.fused_hessian_eig_stream(img, sp,
+                                                                stack=False))
     p_ms = timed("hessian_eig plain 512^3", lambda: K.hessian_eig_plain(img, sp))
     rel, ab = kernel_check("hessian_eig 512^3",
                            K.fused_hessian_eig_stream(img, sp, stack=False),
                            K.hessian_eig_plain(img, sp))
     errs["hessian_eig"].append(rel)
-    results["hessian_eig"] = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=ab)
+    results["hessian_eig"] = dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms,
+                                  max_abs_err=ab)
     say("full", f"hessian_eig 512^3 bit-equal to plain, rel {rel:.2e}; "
         f"{nvox / (k_ms * 1e-3) / 1e9:.2f} Gvox/s kernel")
     torch.cuda.empty_cache()
@@ -1592,14 +1725,19 @@ def phase_full(img, mask, errs, results):
         for name, kern, plain, inside in kernel_pairs(img, mask, sigma, sp):
             if sigma not in FULL_SIGMAS.get(name, SIGMAS):
                 continue
-            km = timed(f"s={sigma} {name} kernel", kern)
+            report = REPORT_SIGMA[name] == sigma
+            if report:
+                km, kd = timed_both(f"s={sigma} {name} kernel", kern)
+            else:
+                km = timed(f"s={sigma} {name} kernel", kern)
             pm = timed(f"s={sigma} {name} plain", plain)
             rel, ab = kernel_check(f"{name} 512^3 s={sigma}", kern(), plain(),
                                    inside)
             errs[name].append(rel)
             say("full", f"s={sigma} {name}: bit-equal to plain, rel {rel:.2e}")
-            if REPORT_SIGMA[name] == sigma:
-                results[name] = dict(ms=km, plain_ms=pm, max_abs_err=ab)
+            if report:
+                results[name] = dict(ms=km, device_ms=kd, plain_ms=pm,
+                                     max_abs_err=ab)
             torch.cuda.empty_cache()
         branch = features8_dispatch_branch(sigma, sp, img.shape)
         f8_k = timed(f"s={sigma} features8 pass ({branch} kernels)",
@@ -1742,11 +1880,12 @@ def phase_full_multi(img, mask, errs, results):
 
     sp = FULL_SPACING
     kern, plain = ys_multi_pair(img, mask, YS_SIGMAS, sp)
-    km = timed(f"features8_ys_multi kernel, S=2 {YS_SIGMAS}", kern)
+    km, kd = timed_both(f"features8_ys_multi kernel, S=2 {YS_SIGMAS}", kern)
     pm = timed("features8_ys_multi plain, S=2", plain)
     rel, ab = multi_check("features8_ys_multi 512^3", kern(), plain())
     errs["features8_ys_multi"].append(rel)
-    results["features8_ys_multi"] = dict(ms=km, plain_ms=pm, max_abs_err=ab)
+    results["features8_ys_multi"] = dict(ms=km, device_ms=kd, plain_ms=pm,
+                                         max_abs_err=ab)
     say("full", f"features8_ys_multi S=2: bit-equal to plain, rel {rel:.2e}")
     del kern, plain
     torch.cuda.empty_cache()
@@ -1765,8 +1904,9 @@ def phase_full_multi(img, mask, errs, results):
         f"launch per scale {sum(ones):.3f} ms; multiscale_features8_fused "
         f"{m_ms:.3f} ms vs the two per-scale passes {sum(p_ms):.3f} ms")
 
-    km = timed(f"features8_sweep_multi kernel, S=2 {SWEEP_SIGMAS}",
-               lambda: K.fused_features8_sweep_multi(img, mask, SWEEP_SIGMAS, sp))
+    km, kd = timed_both(
+        f"features8_sweep_multi kernel, S=2 {SWEEP_SIGMAS}",
+        lambda: K.fused_features8_sweep_multi(img, mask, SWEEP_SIGMAS, sp))
     pm = timed("features8_sweep_multi plain, S=2",
                lambda: K.features8_sweep_multi_plain(img, mask, SWEEP_SIGMAS, sp))
     rel, ab = multi_check(
@@ -1774,7 +1914,8 @@ def phase_full_multi(img, mask, errs, results):
         K.fused_features8_sweep_multi(img, mask, SWEEP_SIGMAS, sp, stack=False),
         K.features8_sweep_multi_plain(img, mask, SWEEP_SIGMAS, sp))
     errs["features8_sweep_multi"].append(rel)
-    results["features8_sweep_multi"] = dict(ms=km, plain_ms=pm, max_abs_err=ab)
+    results["features8_sweep_multi"] = dict(ms=km, device_ms=kd, plain_ms=pm,
+                                            max_abs_err=ab)
     torch.cuda.empty_cache()
     two = [timed(f"s={s} features8_sweep kernel",
                  lambda s=s: K.fused_features8_sweep(img, mask, s, sp))
@@ -1840,7 +1981,11 @@ def phase_full_modes(img, mask, errs, results):
         for name, kern, plain in mode_pairs(img, mask, sigma, sp):
             if name not in ("features8_tap", "features8_xs"):
                 continue
-            km = timed(f"s={sigma} {name} kernel", kern)
+            report = REPORT_SIGMA[name] == sigma
+            if report:
+                km, kd = timed_both(f"s={sigma} {name} kernel", kern)
+            else:
+                km = timed(f"s={sigma} {name} kernel", kern)
             pm = timed(f"s={sigma} {name} plain", plain)
             rel, ab = kernel_check(f"{name} 512^3 s={sigma}", kern(), plain())
             errs[name].append(rel)
@@ -1848,27 +1993,29 @@ def phase_full_modes(img, mask, errs, results):
                 f"{km:.3f} ms against the sweep's {sw:.3f}"
                 + (f" (of it {yz:.3f} ms in smooth_yz)" if name == "features8_xs"
                    else ""))
-            if REPORT_SIGMA[name] == sigma:
-                results[name] = dict(ms=km, plain_ms=pm, max_abs_err=ab)
+            if report:
+                results[name] = dict(ms=km, device_ms=kd, plain_ms=pm,
+                                     max_abs_err=ab)
             torch.cuda.empty_cache()
     sigma = REPORT_SIGMA["features8_sweep_clamps"]
     for name, kern, plain in mode_pairs(img, mask, sigma, sp):
         if name in ("features8_tap", "features8_xs"):
             continue
-        km = timed(f"{name} kernel", kern)
+        km, kd = timed_both(f"{name} kernel", kern)
         pm = timed(f"{name} plain", plain)
         rel, ab = kernel_check(f"{name} 512^3", kern(), plain())
         errs[name].append(rel)
-        results[name] = dict(ms=km, plain_ms=pm, max_abs_err=ab)
+        results[name] = dict(ms=km, device_ms=kd, plain_ms=pm, max_abs_err=ab)
         say("full", f"{name}: bit-equal to plain, rel {rel:.2e}; {km:.3f} ms "
             f"against {results[base[name]]['ms']:.3f} ms of {base[name]} "
             f"(s={REPORT_SIGMA.get(base[name], '-')})")
         torch.cuda.empty_cache()
     X, Y, _ = img.shape
     cl = [2, K.NO_FACE, -K.NO_FACE, Y - 3]
-    km = timed(f"features8_sweep_multi kernel with clamps, S=2 {SWEEP_SIGMAS}",
-               lambda: K.fused_features8_sweep_multi(img, mask, SWEEP_SIGMAS, sp,
-                                                     clamps=cl))
+    km, kd = timed_both(
+        f"features8_sweep_multi kernel with clamps, S=2 {SWEEP_SIGMAS}",
+        lambda: K.fused_features8_sweep_multi(img, mask, SWEEP_SIGMAS, sp,
+                                              clamps=cl))
     pm = timed("features8_sweep_multi plain with clamps, S=2",
                lambda: K.features8_sweep_multi_plain(img, mask, SWEEP_SIGMAS, sp,
                                                      clamps=cl))
@@ -1878,8 +2025,8 @@ def phase_full_modes(img, mask, errs, results):
                                       clamps=cl),
         K.features8_sweep_multi_plain(img, mask, SWEEP_SIGMAS, sp, clamps=cl))
     errs["features8_sweep_multi_clamps"].append(rel)
-    results["features8_sweep_multi_clamps"] = dict(ms=km, plain_ms=pm,
-                                                   max_abs_err=ab)
+    results["features8_sweep_multi_clamps"] = dict(ms=km, device_ms=kd,
+                                                   plain_ms=pm, max_abs_err=ab)
     say("full", f"features8_sweep_multi_clamps: bit-equal to plain, rel "
         f"{rel:.2e}; {km:.3f} ms against "
         f"{results['features8_sweep_multi']['ms']:.3f} ms without clamps")
@@ -1987,10 +2134,164 @@ def config4_inputs(img, mask):
     return list(f8[1:]) + [f8[0]], edges, (mask != 0).to(torch.uint8)
 
 
+def conflict_free_channels(like, C, edges):
+    """C channels shaped like `like` whose every run of 32 voxels puts each
+    voxel in its own one of the 32 bins of the (31,) edges: voxel t takes
+    bin (t mod 32) XOR a random 5-bit key of its run, at the bin's middle
+    (10 beyond the end edges for the two tails)."""
+    dev = like.device
+    e = edges.to(device=dev, dtype=torch.float32)
+    mids = torch.cat([e[:1] - 10.0, (e[:-1] + e[1:]) / 2, e[-1:] + 10.0])
+    g = torch.Generator(device=dev).manual_seed(4)
+    t = torch.arange(like.numel(), device=dev)
+    out = []
+    for _ in range(C):
+        key = torch.randint(0, 32, (like.numel() // 32 + 1,), device=dev,
+                            generator=g)
+        out.append(mids[(t % 32) ^ key[t // 32]].reshape(like.shape))
+    return out
+
+
+def hist_time_shapes(img, mask, run):
+    """The histogram's 512^3 shapes, each handed to run(label, kernel call,
+    plain twin call, (C, E, voxels a box, the box path)) in turn: bench.py config 4 (8
+    channels, 31 edges, the sphere mask), config 4 under bench.py's random
+    75% mask, one channel of 4096 edges, 8 channels of 4096 edges each (the
+    fine-histogram plan), config 4 at E = 1 (the load floor: one compare),
+    config 4 on conflict-free values (no two lanes of a run share a bin),
+    and 50 ROIs of 41^3, 8 channels, 31 edges per sigma. Inputs are freed
+    between shapes."""
+    from ife_tpu_torch import kernels as K
+    from ife_tpu_torch.ops.features import features8_auto_channels
+    from ife_tpu_torch.roi import generate_random_rois
+
+    chans, edges, w = config4_inputs(img, mask)
+    n = img.numel()
+
+    def multi(label, ch, e, ww):
+        E = e.shape[-1]
+        run(label, lambda: K.histogram_counts_multi(ch, e, ww),
+            lambda: K.histogram_counts_multi_plain(ch, e, ww),
+            (len(ch), E, n, False))
+
+    multi("config 4", chans, edges, w)
+    g = torch.Generator(device=img.device).manual_seed(2)
+    wr = (torch.rand(img.shape, device=img.device, generator=g) > 0.25
+          ).to(torch.uint8)
+    multi("config 4, random 75% mask", chans, edges, wr)
+    del wr
+    inside = w != 0
+    fine = torch.stack([torch.linspace(float(c[inside].min()),
+                                       float(c[inside].max()), 4096,
+                                       dtype=torch.float64) for c in chans])
+    del inside
+    multi("1 x 4096 edges", chans[-1:], fine[-1], w)
+    multi("8 x 4096 edges", chans, fine, w)
+    multi("config 4, E = 1", chans, torch.tensor([-600.0], dtype=torch.float64),
+          w)
+    del chans
+    torch.cuda.empty_cache()
+    free = conflict_free_channels(img, 8, edges)
+    multi("config 4, conflict-free values", free, edges, w)
+    del free
+    torch.cuda.empty_cache()
+
+    size = (41, 41, 41)
+    rois = generate_random_rois(w.cpu().numpy(), 50, size, seed=0)
+    starts = [r.index for r in rois]
+    for sigma in SIGMAS:
+        feats = features8_auto_channels(img, mask, sigma, FULL_SPACING)
+        e = hist_edges(feats, 31)
+        run(f"s={sigma} 50 boxes of 41^3",
+            lambda: K.histogram_boxes(feats, w, starts, size, e),
+            lambda: K.histogram_boxes_plain(feats, w, starts, size, e),
+            (8, 31, 41 ** 3, True))
+        del feats
+        torch.cuda.empty_cache()
+
+
+def host_ms(fn, calls=DEVICE_CALLS):
+    """ms the host spends in a call while the card is busy: `calls` calls
+    enqueued behind a long torch.cuda._sleep, timed on the host's clock (a
+    call that waits for the card shows it here)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(8 * DEVICE_SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    return dt
+
+
+def kernel_ms(fn, match, calls=3):
+    """ms a call of fn spends in the CUDA kernels whose name holds `match`,
+    from torch.profiler's device time over `calls` calls after a warm one:
+    the kernel alone, without the wrapper's other launches, its copies or
+    the gaps a wrapper that waits for the card leaves. None where the
+    profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+             for ev in prof.key_averages() if match in ev.key)
+    return us / calls / 1e3 if us > 0 else None
+
+
+def hist_shape_times(img, mask):
+    """label -> {"call": [median, min, max], "device": [...], "host": ms,
+    "kernel": ms} of every shape of hist_time_shapes (call: cuda_ms; device:
+    device_ms; host: host_ms; kernel: kernel_ms, the profiler's time of the
+    histogram kernel alone), each result held against its plain twin
+    (counts equal); "plan": the kernel's form where the package has one."""
+    from ife_tpu_torch.kernels import histogram as H
+
+    plan = getattr(H, "HistPlan", None) and H._plan
+    res = {}
+
+    def run(label, kern, plain, dims):
+        call, dev = cuda_ms(kern), device_ms(kern)
+        kernel_check(f"histogram {label}", kern(), plain())
+        kern_ms = kernel_ms(kern, "histogram_kernel")
+        res[label] = {"call": [round(t, 4) for t in call],
+                      "device": [round(t, 4) for t in dev],
+                      "host": round(host_ms(kern), 4),
+                      "kernel": kern_ms and round(kern_ms, 4)}
+        if plan:
+            C, E, n, boxes = dims
+            res[label]["plan"] = list(plan(C, E, n, boxes=boxes))
+        torch.cuda.empty_cache()
+
+    hist_time_shapes(img, mask, run)
+    return res
+
+
+def hist_times(label):
+    """`--hist-times [ROOT]`: one JSON line of the histogram shapes' 512^3
+    times on both yardsticks (call ms and device ms, median / min / max of
+    5) of the ife_tpu_torch package on sys.path, every result held against
+    its twin. Run it on two checkouts in turns to compare them within one
+    call on one card."""
+    if not torch.cuda.is_available():
+        raise PhaseError("torch.cuda.is_available() is false")
+    img, mask = _inputs(FULL, 2, "cuda")
+    res = {"label": label, "card": card_line()}
+    res.update(hist_shape_times(img, mask))
+    print(json.dumps(res), flush=True)
+
+
 def phase_full_hist(img, mask, errs, results):
-    """The histogram kernel at 512^3 against its twin: the config-4 shape,
-    one 4096-edge channel, and 50 ROIs of 41^3 per sigma beside the
-    feature pass that feeds them."""
+    """The histogram kernel at 512^3 against its twin on every shape of
+    hist_time_shapes (call ms and device ms), the config-4 twin's time,
+    and the make_bag_device stages per sigma: the feature pass that feeds
+    the 50 ROIs of 41^3 and their binning."""
     import numpy as np
 
     from ife_tpu_torch import kernels as K
@@ -1998,53 +2299,38 @@ def phase_full_hist(img, mask, errs, results):
     from ife_tpu_torch.roi import generate_random_rois
     from ife_tpu_torch.roi.bag import roi_feature_histograms_device
 
+    times = hist_shape_times(img, mask)
+    for label, t in times.items():
+        errs["histogram"].append(0.0)
+        say("full", f"histogram {label}: equal to its twin; call "
+            f"{t['call'][0]:.3f} ms (min {t['call'][1]:.3f}, max "
+            f"{t['call'][2]:.3f}); device {t['device'][0]:.3f} ms (min "
+            f"{t['device'][1]:.3f}, max {t['device'][2]:.3f}); kernel "
+            f"{t['kernel']} ms; plan {t.get('plan')}")
+    print(json.dumps({"hist shapes": times}), flush=True)
+
     chans, edges, w = config4_inputs(img, mask)
     inside = int(w.sum())
-    km = timed("histogram kernel, config 4 (8 x 512^3, 31 edges, mask)",
-               lambda: K.histogram_counts_multi(chans, edges, w))
+    km, kd = times["config 4"]["call"][0], times["config 4"]["device"][0]
     pm = timed("histogram plain, config 4",
                lambda: K.histogram_counts_multi_plain(chans, edges, w))
     rel, ab = kernel_check("histogram config 4",
                            K.histogram_counts_multi(chans, edges, w),
                            K.histogram_counts_multi_plain(chans, edges, w))
     errs["histogram"].append(rel)
-    results["histogram"] = dict(ms=km, plain_ms=pm, max_abs_err=ab)
+    results["histogram"] = dict(ms=km, device_ms=kd, plain_ms=pm,
+                                max_abs_err=ab)
     # bytes the kernel must move: the uint8 mask, and the 8 channels of
-    # every 32-voxel warp that holds a masked voxel; operations: the five
+    # every 32-voxel run that holds a masked voxel; operations: the five
     # compares of a search over 31 edges per masked voxel and channel
     warps = int(w.view(-1, 32).any(1).sum())
     gb = (w.numel() + warps * 32 * 4 * 8) / 1e9
     hist_work = (gb * 1e9, 8 * inside * 5)
-    say("full", f"histogram config 4 equal to plain; {inside} masked voxels, "
-        f"~{gb:.2f} GB moved -> {gb / (km * 1e-3):.0f} GB/s; "
-        f"{8 * inside / (km * 1e-3) / 1e9:.2f} G binnings/s")
-
-    # bench.py's own config-4 mask: uniform > 0.25, 75% of the voxels
-    g = torch.Generator(device=img.device).manual_seed(2)
-    wr = (torch.rand(img.shape, device=img.device, generator=g) > 0.25
-          ).to(torch.uint8)
-    timed("histogram kernel, config 4 with a random 75% mask",
-          lambda: K.histogram_counts_multi(chans, edges, wr))
-    timed("histogram plain, config 4 with a random 75% mask",
-          lambda: K.histogram_counts_multi_plain(chans, edges, wr))
-    rel, _ = kernel_check("histogram config 4, random mask",
-                          K.histogram_counts_multi(chans, edges, wr),
-                          K.histogram_counts_multi_plain(chans, edges, wr))
-    errs["histogram"].append(rel)
-    del wr
-
-    c0 = chans[-1]  # GaussianBlur
-    lo, hi = float(c0[w != 0].min()), float(c0[w != 0].max())
-    fine = torch.linspace(lo, hi, 4096, dtype=torch.float64)
-    timed("histogram kernel, 1 x 512^3, 4096 edges, mask",
-          lambda: K.histogram_counts_kernel(c0, fine, w))
-    timed("histogram plain, 1 x 512^3, 4096 edges",
-          lambda: K.histogram_counts_multi_plain([c0], fine, w))
-    rel, _ = kernel_check("histogram 4096 edges",
-                          K.histogram_counts_kernel(c0, fine, w),
-                          K.histogram_counts_multi_plain([c0], fine, w)[0])
-    errs["histogram"].append(rel)
-    del chans, c0
+    say("full", f"histogram config 4: {inside} masked voxels, ~{gb:.2f} GB "
+        f"moved -> {gb / (kd * 1e-3):.0f} GB/s on the device yardstick "
+        f"({gb / (km * 1e-3):.0f} a call); "
+        f"{8 * inside / (kd * 1e-3) / 1e9:.2f} G binnings/s")
+    del chans
     torch.cuda.empty_cache()
 
     size = (41, 41, 41)
@@ -2060,17 +2346,10 @@ def phase_full_hist(img, mask, errs, results):
                      "(roi_feature_histograms_device)",
                      lambda: roi_feature_histograms_device(feats, mask, starts,
                                                            e, size))
-        k_ms = timed(f"s={sigma} histogram kernel, 50 boxes",
-                     lambda: K.histogram_boxes(feats, w, starts, size, e))
-        p_ms = timed(f"s={sigma} histogram plain, 50 boxes",
-                     lambda: K.histogram_boxes_plain(feats, w, starts, size, e))
-        rel, _ = kernel_check(f"histogram boxes 512^3 s={sigma}",
-                              K.histogram_boxes(feats, w, starts, size, e),
-                              K.histogram_boxes_plain(feats, w, starts, size, e))
-        errs["histogram"].append(rel)
+        k = times[f"s={sigma} 50 boxes of 41^3"]
         say("full", f"s={sigma} make_bag_device stages: features8 {f_ms:.3f} ms, "
-            f"binning {b_ms:.3f} ms (kernel {k_ms:.3f} vs plain {p_ms:.3f} ms, "
-            "equal)")
+            f"binning {b_ms:.3f} ms (kernel call {k['call'][0]:.3f} ms, device "
+            f"{k['device'][0]:.3f} ms, equal to the twin)")
         del feats
         torch.cuda.empty_cache()
     print(card_line(), flush=True)
@@ -2212,6 +2491,30 @@ def sass_ldg_counts():
     return counts
 
 
+def streaming_turns(name, img):
+    """pcopy1 or trivial6 at both widths beside the library's calls for the
+    same bytes, on the device yardstick, in turns (forward, then backward):
+    one JSON line {"<name> turns": {label: [device ms of each turn]}}."""
+    from ife_tpu_torch.kernels import probes as P
+
+    if name == "pcopy1":
+        c1 = P.PCOPY1_SCALE
+        lib = [("torch.mul", lambda: torch.mul(img, c1)),
+               ("Tensor.copy_", lambda: torch.empty_like(img).copy_(img))]
+    else:
+        lib = [("six torch.mul",
+                lambda: [torch.mul(img, c) for c in P.TRIVIAL6_SCALES])]
+    fn = getattr(P, name)
+    order = [(f"{name} width 4", lambda: fn(img, 4)), *lib,
+             (f"{name} width 1", lambda: fn(img, 1))]
+    turns = {label: [] for label, _ in order}
+    for seq in (order, order[::-1]):
+        for label, f in seq:
+            turns[label].append(round(device_ms(f)[0], 4))
+    print(json.dumps({f"{name} turns": turns}), flush=True)
+    return turns
+
+
 def phase_probes(img, mask, errs, results, library, modes=PROBE_MODES):
     """The probe kernels beside their twins and library forms at 512^3."""
     import math
@@ -2232,10 +2535,10 @@ def phase_probes(img, mask, errs, results, library, modes=PROBE_MODES):
         if want[name] not in modes:
             continue
         vols = PROBE_VOLUMES[name]
-        km = timed(f"{name} kernel", kern, "probes")
+        km, kd = timed_both(f"{name} kernel", kern, "probes")
         pm = timed(f"{name} plain", plain, "probes")
-        lm = (timed(f"{name} library: {LIBRARY[name]}", lib, "probes")
-              if lib else None)
+        lm, ld = (timed_both(f"{name} library: {LIBRARY[name]}", lib, "probes")
+                  if lib else (None, None))
         got, ref = kern(), plain()
         bitwise_check(f"{name} 512^3", got, ref)
         ab = max(_rel(g, r)[1] for g, r in zip(
@@ -2243,19 +2546,24 @@ def phase_probes(img, mask, errs, results, library, modes=PROBE_MODES):
             ref if isinstance(ref, tuple) else (ref,)))
         del got, ref
         errs[name].append(0.0)
-        results[name] = dict(ms=km, plain_ms=pm, max_abs_err=ab)
-        library[name] = lm
-        say("probes", f"{name}: {km:.3f} ms, {gbs(vols, km):.0f} GB/s touched "
-            f"({vols} volumes); plain {pm:.3f} ms"
-            + (f"; library {lm:.3f} ms, {gbs(vols, lm):.0f} GB/s" if lm else ""))
+        results[name] = dict(ms=km, device_ms=kd, plain_ms=pm, max_abs_err=ab)
+        library[name] = (lm, ld)
+        say("probes", f"{name}: device {kd:.3f} ms, {gbs(vols, kd):.0f} GB/s "
+            f"touched ({vols} volumes; call {km:.3f} ms); plain {pm:.3f} ms"
+            + (f"; library device {ld:.3f} ms, {gbs(vols, ld):.0f} GB/s (call "
+               f"{lm:.3f})" if lm else ""))
         if name in ("pcopy1", "trivial6"):
             w1 = timed(f"{name} kernel, width 1", width1[name], "probes")
             say("probes", f"{name} width 1 (a float a thread): {w1:.3f} ms, "
                 f"{gbs(vols, w1):.0f} GB/s, against width 4 {km:.3f} ms")
         if name == "pcopy1":
-            cp = timed("Tensor.copy_ of one 512^3 volume",
-                       lambda: torch.empty_like(img).copy_(img), "probes")
-            say("probes", f"Tensor.copy_: {cp:.3f} ms, {gbs(2, cp):.0f} GB/s")
+            cp, cd = timed_both("Tensor.copy_ of one 512^3 volume",
+                                lambda: torch.empty_like(img).copy_(img),
+                                "probes")
+            say("probes", f"Tensor.copy_: device {cd:.3f} ms, "
+                f"{gbs(2, cd):.0f} GB/s (call {cp:.3f})")
+        if name in ("pcopy1", "trivial6"):
+            streaming_turns(name, img)
         if name == "features8_tap_copyfloor":
             from ife_tpu_torch import kernels as K
 
@@ -2560,6 +2868,15 @@ def main() -> int:
             print(f"chip_smoke: --sweep-times failed: {e}", file=sys.stderr)
             return 1
         return 0
+    if sys.argv[1:2] == ["--hist-times"]:
+        other = os.path.abspath(sys.argv[2]) if len(sys.argv) > 2 else root
+        sys.path.insert(0, other)
+        try:
+            hist_times(other)
+        except PhaseError as e:
+            print(f"chip_smoke: --hist-times failed: {e}", file=sys.stderr)
+            return 1
+        return 0
     sys.path.insert(0, root)
 
     if sys.argv[1:2] == ["--dispatch-table"]:
@@ -2642,6 +2959,9 @@ def main() -> int:
         launches = {k: launches[k] + probe_launches[k] for k in launches}
         library = {}
         phase_probes(img, mask, errs, results, library)
+        missing = [k for k in KERNELS if "device_ms" not in results.get(k, {})]
+        if missing:
+            raise PhaseError(f"no device time for {missing}")
         phase = "profile"
         phase_profile(img, mask)
     except PhaseError as e:
@@ -2657,7 +2977,9 @@ def main() -> int:
         dict(name=name, route="cuda", source=src, replaces=rep,
              launches=launches[name], **results[name],
              bound_ms=bounds[name][0], bound_by=bounds[name][1],
-             library_ms=library.get(name), library=LIBRARY.get(name, NO_LIBRARY),
+             library_ms=library.get(name, (None, None))[0],
+             library_device_ms=library.get(name, (None, None))[1],
+             library=LIBRARY.get(name, NO_LIBRARY),
              max_rel_err=max(errs[name]))
         for name, (src, rep) in KERNELS.items()
     ]

@@ -11,49 +11,71 @@
 // the Hessian kernel loads and stores, or float4 with a scalar tail.
 //
 // What bounds them on the H100: bytes, 4 (1 + kOut) B a voxel against kOut
-// multiplies. The design is a grid-stride loop of coalesced accesses, a
-// full SM of threads, nothing else (more loads in flight a thread, 2 or 4,
-// measured no faster on the H100).
+// multiplies. The loop has PyTorch's launch shape for elementwise kernels:
+// 128-thread blocks, a grid that covers the volume once, 32-bit indices,
+// four accesses a thread with every load issued before any store. Timed
+// on the device yardstick in turns with torch.mul (PERF.md), it
+// reaches the library's copy rate (0.358 against 0.356 ms for pcopy1 at
+// 512^3); the grid-stride loop over a full SM of threads it replaced took
+// 0.376, and streaming cache hints (__ldcs / __stcs) gained nothing.
 // Each output has its own pointer, so every output of a torch allocation is
 // 16-byte aligned and float4 takes any element count. The constants come in
 // as f32, rounded once on the host.
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
-constexpr int kProbeThreads = 256;
+constexpr int kProbeThreads = 128;
+constexpr int kProbeUnroll = 4;
 constexpr int kProbeMaxOut = 6;
-constexpr int kProbeBlocksPerSm = 8;
+// the largest n the 32-bit indices take (kernels/probes.py _MAX_N)
+constexpr long long kProbeMaxN = 0x7fff0000LL;
 
 struct ProbeOuts {
     float* p[kProbeMaxOut];
     float c[kProbeMaxOut];
 };
 
+__device__ __forceinline__ float4 scale4(float4 v, float c) {
+    return make_float4(v.x * c, v.y * c, v.z * c, v.w * c);
+}
+
+// units of kWidth floats, kProbeUnroll units a thread at a stride of one
+// block, so each access of a warp is coalesced
 template <int kOut, int kWidth>
 __global__ void __launch_bounds__(kProbeThreads)
-scaled_copies_kernel(const float* __restrict__ x, ProbeOuts o, long long n) {
-    const long long stride = (long long)gridDim.x * blockDim.x;
-    const long long t0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    long long tail = 0;  // the floats past the last whole float4
-    if (kWidth == 4) {
-        const long long n4 = n / 4;
-        const float4* x4 = reinterpret_cast<const float4*>(x);
-        for (long long i = t0; i < n4; i += stride) {
-            const float4 v = __ldg(x4 + i);
+scaled_copies_kernel(const float* __restrict__ x, ProbeOuts o, int n) {
+    using V = typename std::conditional<kWidth == 4, float4, float>::type;
+    const int units = kWidth == 4 ? n / 4 : n;
+    const int u0 = blockIdx.x * (kProbeThreads * kProbeUnroll) + threadIdx.x;
+    const V* xv = reinterpret_cast<const V*>(x);
+    V v[kProbeUnroll];
 #pragma unroll
-            for (int k = 0; k < kOut; ++k) {
-                const float c = o.c[k];
-                reinterpret_cast<float4*>(o.p[k])[i] =
-                    make_float4(v.x * c, v.y * c, v.z * c, v.w * c);
-            }
-        }
-        tail = 4 * n4;
+    for (int u = 0; u < kProbeUnroll; ++u) {
+        const int i = u0 + u * kProbeThreads;
+        if (i < units) v[u] = __ldg(xv + i);
     }
-    for (long long i = tail + t0; i < n; i += stride) {
-        const float v = __ldg(x + i);
 #pragma unroll
-        for (int k = 0; k < kOut; ++k) o.p[k][i] = v * o.c[k];
+    for (int u = 0; u < kProbeUnroll; ++u) {
+        const int i = u0 + u * kProbeThreads;
+        if (i >= units) continue;
+#pragma unroll
+        for (int k = 0; k < kOut; ++k) {
+            if constexpr (kWidth == 4)
+                reinterpret_cast<float4*>(o.p[k])[i] = scale4(v[u], o.c[k]);
+            else
+                o.p[k][i] = v[u] * o.c[k];
+        }
+    }
+    // the floats past the last whole float4, in the last block
+    if (kWidth == 4 && blockIdx.x == gridDim.x - 1) {
+        const int i = 4 * units + threadIdx.x;
+        if (i < n) {
+            const float f = x[i];
+#pragma unroll
+            for (int k = 0; k < kOut; ++k) o.p[k][i] = f * o.c[k];
+        }
     }
 }
 
@@ -61,33 +83,29 @@ template <int kOut>
 static int launch_scaled_copies(const float* x, const ProbeOuts& o,
                                 long long n, long long width,
                                 cudaStream_t stream) {
-    if (n < 1 || (width != 1 && width != 4)) return (int)cudaErrorInvalidValue;
+    if (n < 1 || n > kProbeMaxN || (width != 1 && width != 4))
+        return (int)cudaErrorInvalidValue;
     if (width == 4) {
         uintptr_t bits = reinterpret_cast<uintptr_t>(x);
         for (int k = 0; k < kOut; ++k)
             bits |= reinterpret_cast<uintptr_t>(o.p[k]);
         if (bits % 16 != 0) return (int)cudaErrorMisalignedAddress;
     }
-    int dev = 0, sms = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
-    const long long units = width == 4 ? (n + 3) / 4 : n;
-    const long long blocks = (units + kProbeThreads - 1) / kProbeThreads;
-    const long long cap = (long long)sms * kProbeBlocksPerSm;
-    const unsigned grid = (unsigned)(blocks < cap ? blocks : cap);
+    const long long units = width == 4 ? n / 4 : n;
+    const long long per_block = (long long)kProbeThreads * kProbeUnroll;
+    const long long blocks = units > 0 ? (units + per_block - 1) / per_block : 1;
     if (width == 4)
         scaled_copies_kernel<kOut, 4>
-            <<<grid, kProbeThreads, 0, stream>>>(x, o, n);
+            <<<(unsigned)blocks, kProbeThreads, 0, stream>>>(x, o, (int)n);
     else
         scaled_copies_kernel<kOut, 1>
-            <<<grid, kProbeThreads, 0, stream>>>(x, o, n);
+            <<<(unsigned)blocks, kProbeThreads, 0, stream>>>(x, o, (int)n);
     return (int)cudaGetLastError();
 }
 
-// x, out: n contiguous float32; width: 1 (a float a thread) or 4 (float4,
-// x and out 16-byte aligned); c: the constant, rounded to f32 by the caller.
+// x, out: n (< 2^31 - 2^16) contiguous float32; width: 1 (a float a
+// thread) or 4 (float4, x and out 16-byte aligned); c: the constant,
+// rounded to f32 by the caller.
 extern "C" int ife_pcopy1(const float* x, float* out, long long n,
                           long long width, float c, cudaStream_t stream) {
     ProbeOuts o{};

@@ -85,7 +85,7 @@ _SIGNATURES = {
                             _I] + [_I] * 4 + [_F] * 6 + [_P],
     "ife_features8_xs_stream": [_P, _P, _P, _P, _I, _I, _I, _FP, _I]
                                + [_F] * 6 + [_P],
-    "ife_histogram": [_P, _I, _P, _I, _P, _I, _P] + [_I] * 8 + [_P, _P],
+    "ife_histogram": [_P, _I, _P, _I, _P, _I, _P] + [_I] * 11 + [_P, _P],
     "ife_smooth_xz": [_P, _P, _P, _P, _I, _I, _I, _FP, _I, _FP, _I, _P],
     "ife_features8_post_windowed": [_P, _P, _P, _I, _I, _I, _I, _I, _I]
                                    + [_F] * 6 + [_P],

@@ -52,6 +52,9 @@ PCOPY1_SCALE = _f32(1.000001)
 TRIVIAL6_SCALES = tuple(_f32(1.0 + 1e-6 * k) for k in range(6))
 
 
+_MAX_N = 0x7FFF0000  # csrc/probes.cu kProbeMaxN: the kernels index in 32 bits
+
+
 def _check_width(name: str, width: int) -> None:
     if width not in (1, 4):
         raise ValueError(f"{name}: width must be 1 (a float a thread) or 4 "
@@ -65,6 +68,8 @@ def _scaled_copies(name: str, x: torch.Tensor, scales, width: int):
     if width == 4 and x.data_ptr() % 16:
         raise ValueError(f"{name}: width 4 needs a 16-byte aligned tensor "
                          "(a view at an offset is not)")
+    if x.numel() > _MAX_N:
+        raise ValueError(f"{name}: at most {_MAX_N} voxels, got {x.numel()}")
     outs = tuple(torch.empty_like(x) for _ in scales)
     entry = "pcopy1" if len(scales) == 1 else "trivial6"
     launch(entry, x.device, x.data_ptr(), *(o.data_ptr() for o in outs),

@@ -113,10 +113,12 @@ def masked_fine_histograms_multi(
         if hi <= lo:
             hi = lo + 1.0
         bounds_rows.append(_fine_bounds(lo, hi, n_fine, ch.dtype)[1])
+    # host edges: the kernel's wrapper checks and rounds them there and
+    # copies them to the card with the launch
     edges = torch.from_numpy(np.stack(bounds_rows))
     local = sum(
-        histogram_counts_multi([ch.blocks[i] for ch in channels],
-                               edges.to(m.device), _weights(m))
+        histogram_counts_multi([ch.blocks[i] for ch in channels], edges,
+                               _weights(m))
         for i, m in enumerate(mask.blocks))
     raw = _all_reduce(local).cpu().numpy().astype(np.float64)
     return [(bounds, _merge_tails(raw[c], n_fine))

@@ -528,7 +528,7 @@ def test_histogram_kernel_global_path_and_channel_groups(cuda, C, E):
     edges = _hist_edges(rng, C, E)
     chans = [_hist_values(rng, n, edges[c], cuda) for c in range(C)]
     w = _hist_weights(rng, "uint8", n, cuda)
-    assert (_plan(C, E, n, 1, cuda)[0] == 0) == (E == 4096)
+    assert (_plan(C, E, n).copies == 0) == (E == 4096)
     before = K.LAUNCHES["histogram"]
     got = K.histogram_counts_multi(chans, edges, w)
     assert K.LAUNCHES["histogram"] - before == -(-C // 64)
@@ -573,6 +573,89 @@ def test_histogram_kernel_512_cubed_eight_channels(cuda):
     assert int(got[0].sum()) == int(w.sum())
 
 
+HIST_CASES = ["constant field", "E = 1", "8 x 4096 edges", "odd offset",
+              "NaN values", "int32 weights", "empty mask",
+              "runs empty and full", "conflict-free"]
+
+
+def _hist_case(case, dev):
+    """(channels, edges, weights) of one design case of the kernel."""
+    g = torch.Generator(device=dev).manual_seed(HIST_CASES.index(case))
+    n = 100_003  # n % 4 == 3
+    base = torch.randn(8 * n + 1, device=dev, generator=g) * 300.0 - 600.0
+    views = [base[1 + c * n: 1 + (c + 1) * n] for c in range(8)]  # odd offsets
+    e31 = torch.linspace(-1200.0, 600.0, 31, dtype=torch.float64)
+    ones = torch.ones(n, dtype=torch.uint8, device=dev)
+    runs = torch.arange(n, device=dev) // 32
+    patchy = ((runs % 3 == 0) | ((runs % 3 == 1)
+                                 & (torch.rand(n, device=dev, generator=g) > 0.5)))
+    if case == "constant field":
+        return [torch.full((n,), 0.5, device=dev)] * 8, e31, ones
+    if case == "E = 1":
+        return views, torch.tensor([-600.0], dtype=torch.float64), patchy
+    if case == "8 x 4096 edges":
+        return views, torch.linspace(-1500.0, 300.0, 4096,
+                                     dtype=torch.float64), ones
+    if case == "odd offset":
+        return views, e31, patchy.to(torch.uint8)
+    if case == "NaN values":
+        views[3] = views[3].clone()
+        views[3][::5] = float("nan")
+        return views, e31, None
+    if case == "int32 weights":
+        return views, e31, torch.randint(0, 1000, (n,), dtype=torch.int32,
+                                         device=dev, generator=g)
+    if case == "empty mask":
+        return views, e31, torch.zeros_like(ones)
+    if case == "runs empty and full":
+        return views, e31, (runs % 2 == 0).to(torch.uint8)
+    # conflict-free: every voxel of a run of 32 in its own bin
+    e = e31.to(dev, torch.float32)
+    mids = torch.cat([e[:1] - 10.0, (e[:-1] + e[1:]) / 2, e[-1:] + 10.0])
+    t = torch.arange(n, device=dev)
+    key = torch.randint(0, 32, (n // 32 + 1,), device=dev, generator=g)
+    return [mids[(t % 32) ^ key[t // 32]]] * 8, e31, ones
+
+
+@pytest.mark.parametrize("case", HIST_CASES)
+def test_histogram_kernel_design_cases(cuda, case):
+    # the cases the kernel's design must get right: its loads, its skipped
+    # runs and its warp-aggregated adds; counts equal the twin's exactly
+    from ife_tpu_torch.kernels.histogram import _plan
+
+    chans, edges, w = _hist_case(case, cuda)
+    before = K.LAUNCHES["histogram"]
+    got = K.histogram_counts_multi(chans, edges, w)
+    assert K.LAUNCHES["histogram"] - before == 1
+    assert torch.equal(got, K.histogram_counts_multi_plain(chans, edges, w))
+    if case == "empty mask":
+        assert int(got.sum()) == 0
+    if case == "constant field":
+        assert int(got[0].max()) == len(chans[0])
+    if case == "8 x 4096 edges":  # the bins alone in shared memory
+        assert _plan(8, 4096, len(chans[0]))[:2] == (False, 1)
+
+
+@pytest.mark.parametrize("size", [(17, 15, 13), (3, 5, 33), (1, 1, 43),
+                                  (11, 9, 41)])
+@pytest.mark.parametrize("weights", [None, "uint8", "int32"])
+def test_histogram_boxes_at_odd_starts(cuda, size, weights):
+    # rows shorter and longer than a warp, starts at odd corners
+    from ife_tpu_torch.kernels.histogram import _edges_f32_round_down
+
+    rng = np.random.default_rng(sum(size))
+    shape = (37, 29, 43)
+    edges = _hist_edges(rng, 8, 31)
+    chans = [_hist_values(rng, int(np.prod(shape)), edges[c], cuda).reshape(shape)
+             for c in range(8)]
+    w = _hist_weights(rng, weights, shape, cuda)
+    starts = [(1, 3, 5), (7, 1, 0), (36 - size[0], 28 - size[1], 43 - size[2]),
+              (5, 11, 1)]
+    got = K.histogram_boxes(chans, w, starts, size, edges)
+    assert torch.equal(got, K.histogram_boxes_plain(
+        chans, w, starts, size, _edges_f32_round_down(edges)))
+
+
 def test_histogram_wrappers_reject_what_the_kernel_does_not_take(cuda):
     from ife_tpu_torch.stats import histogram_counts
 
@@ -587,6 +670,8 @@ def test_histogram_wrappers_reject_what_the_kernel_does_not_take(cuda):
                           torch.stack([e, e]))
     with pytest.raises(ValueError, match="non-decreasing"):
         K.histogram_counts_multi([v], torch.tensor([1.0, 0.0]))
+    with pytest.raises(ValueError, match="host"):  # checked before they move
+        K.histogram_counts_multi([v], e.to(cuda))
 
 
 # ---------------------------------------------------------------------------

@@ -263,3 +263,99 @@ def test_dense_histogram_equals_ife_tpu():
     t.reset_counts()
     j.reset_counts()
     np.testing.assert_array_equal(t.get_frequencies(), j.get_frequencies())
+
+
+# ---------------------------------------------------------------------------
+# the kernel's host side: its plan and its edge preparation
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("C,E,form", [
+    (8, 31, (True, 8, 256)),      # config 4: edges and 8 bin copies shared
+    (1, 4096, (True, 1, 256)),    # one fine channel: one copy beside 8192
+    (8, 4096, (False, 1, 1024)),  # the bins alone fit: edges through L1
+    (64, 4096, (False, 0, 256)),  # the bins alone exceed a block: global
+])
+def test_plan_picks_the_form_from_the_table_sizes(C, E, form):
+    from ife_tpu_torch.kernels.histogram import _SMEM_MAX, _TILE, _plan
+
+    n = 512 ** 3
+    p = _plan(C, E, n)
+    assert tuple(p[:3]) == form
+    # no more blocks a box than there are tiles for its warps
+    assert p.blocks_per_box == -(-(n // _TILE) // (p.threads // 32))
+    assert _plan(C, E, 1000).blocks_per_box == 1
+    # the table a block keeps never exceeds the shared memory it may take
+    for smem in (_SMEM_MAX, 48 * 1024):
+        q = _plan(C, E, n, smem=smem)
+        assert 4 * C * E * q.edges_shared + 4 * C * (E + 1) * q.copies <= smem
+
+
+@pytest.mark.parametrize("kind", ["up", "down", "exact"])
+@pytest.mark.parametrize("per_channel", [False, True])
+def test_host_edges_round_down_like_ife_tpu(kind, per_channel):
+    # f64 edges whose nearest f32 lies above them (rounding to nearest would
+    # round UP), below them, or that are f32 values: all must come out as
+    # the largest f32 <= e, as ife_tpu's _edges_f32_round_down gives them
+    from ife_tpu_torch.kernels.histogram import _host_edges
+
+    rng = np.random.default_rng(11)
+    f = np.sort(rng.standard_normal(40).astype(np.float32) * 500)
+    ulp = np.spacing(f).astype(np.float64)
+    e = f.astype(np.float64) + {"up": -0.25, "down": 0.25, "exact": 0.0}[kind] * ulp
+    e = np.stack([e, e + 1.0, e * 2.0]) if per_channel else e
+    got = _host_edges("t", torch.from_numpy(e), 3)
+    want = np.asarray(JH._edges_f32_round_down(jnp.asarray(e)))
+    want = np.broadcast_to(want, (3, 40))
+    assert got.dtype == np.float32 and got.shape == (3, 40)
+    assert got.flags["C_CONTIGUOUS"]
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, _edges_f32_round_down(
+        torch.from_numpy(np.broadcast_to(e, (3, 40)).copy())).numpy())
+    assert (got.astype(np.float64) <= np.broadcast_to(e, (3, 40))).all()
+    if kind == "exact":
+        np.testing.assert_array_equal(got[0], f)
+
+
+def _record_check_edges(monkeypatch):
+    from ife_tpu_torch.kernels import histogram as H
+
+    seen = []
+    real = H.check_edges
+
+    def record(name, edges):
+        seen.append((name, edges.device.type))
+        return real(name, edges)
+
+    monkeypatch.setattr(H, "check_edges", record)
+    return seen
+
+
+@pytest.mark.parametrize("entry", ["histogram_counts_multi", "histogram_boxes",
+                                   "masked_fine_histograms_multi"])
+def test_edges_are_checked_on_the_host_before_they_move(monkeypatch, entry):
+    # every histogram path checks its edges while they lie on the host: the
+    # check sees only CPU tensors, and refuses edges on a device rather than
+    # copying them back
+    from ife_tpu_torch import parallel as P
+    from ife_tpu_torch.kernels import histogram as H
+
+    seen = _record_check_edges(monkeypatch)
+    rng = np.random.default_rng(12)
+    vol = [torch.from_numpy(rng.standard_normal((16, 16, 16)).astype(np.float32))
+           for _ in range(3)]
+    mask = torch.from_numpy((rng.uniform(size=(16, 16, 16)) > 0.4).astype(np.uint8))
+    e = np.sort(rng.standard_normal((3, 9)), axis=1)
+    if entry == "histogram_counts_multi":
+        K.histogram_counts_multi(vol, torch.from_numpy(e), mask)
+        K.histogram_counts_multi(vol, e[0], mask)
+    elif entry == "histogram_boxes":
+        K.histogram_boxes(vol, mask, [[0, 0, 0], [3, 4, 5]], (5, 5, 5),
+                          torch.from_numpy(e))
+    else:
+        mesh = P.make_mesh(4, ("x",), device="cpu")
+        P.masked_fine_histograms_multi(
+            [P.shard_volume(v.numpy(), mesh) for v in vol],
+            P.shard_volume(mask.numpy(), mesh), mesh, n_fine=64)
+    assert seen and all(dev == "cpu" for _, dev in seen)
+    with pytest.raises(ValueError, match="host"):
+        H.check_edges("t", torch.empty(4, device="meta"))
