@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --ranks 4     # the sharded path, one rank per card
-    python3 chip_smoke.py --sweep-times [ROOT]   # the sweep family's 512^3
+    python3 chip_smoke.py --sweep-times [ROOT [GROUP...]]  # the sweep
+                                        # family's (GROUP sweep) and the
+                                        # direct entries' (GROUP tap) 512^3
                                         # times of the checkout under ROOT
     python3 chip_smoke.py --hist-times [ROOT]    # the histogram's 512^3
                                         # shapes, call ms and device ms, of
@@ -56,7 +58,15 @@ failing phase exits non-zero:
               from) and ys_multi at S = 1 .. 4 (both skip the
               planes and tails the mask leaves empty) under an empty, a
               one-octant, a full and the sphere mask, on thin odd shapes and
-              on (128, 124, 120);
+              on (128, 124, 120); the direct entries (tap_xs_radius_checks):
+              the tap and its copy floor at every equal radius 1 .. 12 (its
+              ring in shared memory to 11, in global scratch beyond), 20, 32
+              and 44, at three scales with rx != ry != rz and at radii 2 /
+              25 / 2, xs at x radii 1 .. 12,
+              20, 29, on shapes thin, prime and one voxel over the kernels'
+              tiles and the tap's row chunk on each axis, under an empty, a
+              one-octant, a full, the sphere and a clamped sphere mask (the
+              tap skips rows, xs blocks, with no voxel inside);
   4. main     four paths of user entry points, the launch counters reset
               before each and read after it. Features: the CLI
               (extract-features -s 0.6 2.4, hessian-features with and
@@ -119,9 +129,9 @@ failing phase exits non-zero:
               Tensor.copy_, six torch.mul, six torch.add, six clone), the
               Hessian kernel's split (copy floor, copy6, stencil6, full),
               probe11's ovh (5 and 20 launches between one event pair give
-              the same ms a launch) and the LDG count of each Hessian and tap
-              instantiation (cuobjdump -sass: the copy floors keep the
-              features' loads);
+              the same ms a launch) and the LDG and LDGSTS (cp.async) counts
+              of each Hessian and tap instantiation (cuobjdump -sass: the
+              copy floors keep the features' loads);
      dispatch the features8 pass at 512^3 through each branch that takes
               the scale (sweep, y/z passes + xs-stream, normalized_conv +
               post), in turns, under the sphere mask and a mask of ones, at
@@ -177,6 +187,7 @@ from __future__ import annotations
 import inspect
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -324,6 +335,15 @@ SWEEP_VS_STAGED = (0.6, 1.2, 1.7)
 # past the sweep's instantiations up to ife_tpu's xs-stream limit), and the
 # scale sets of the ys-multi kernel, S = 1 .. 4
 XS_CHECK_RADII = tuple(range(11, 21)) + (24, 28, 36)
+# the direct entries' tiles (csrc/features8_tap.cu): the tap sweeps y over
+# (x, z) tiles of 14 x 32 voxels in chunks of max(128, 32 (ry + 1)) rows, the
+# xs kernel takes (y, z) tiles of 14 x 32 and 32 planes of x. Shapes thin on
+# each axis, prime, and one voxel over a tile or a chunk on each axis (289
+# rows: one over a chunk of 288 at ry 8, 33 over two of 128 at ry <= 3); the
+# x radii of the xs kernel checked one by one
+TAP_XS_SHAPES = ((15, 289, 33), (33, 15, 33), (29, 31, 97), (5, 40, 33),
+                 (40, 9, 33), (23, 17, 1))
+XS_DIRECT_RADII = tuple(range(1, 13)) + (20, 29)
 YS_CHECK_SIGMAS = ((2.4,), YS_SIGMAS, (0.6, 2.4, 4.8), SIGMAS)
 # the scales at which phase 5 times the three features8 branches against
 # each other (the dispatch table): these, and one sigma more for every x
@@ -862,6 +882,67 @@ def xs_ys_radius_checks(errs):
         "empty / one octant / full / sphere: bit-equal to the twins")
 
 
+def tap_max_radius(K):
+    """The largest r that the checkout's tap_fits takes at equal radii."""
+    unit = (1.0, 1.0, 1.0)
+    return max(r for r in range(1, 129) if K.tap_fits(r / 4.5, unit))
+
+
+def tap_xs_radius_checks(errs):
+    """The direct entries against their twins on TAP_XS_SHAPES under an
+    empty, a one-octant, a full, the sphere and a sphere of -0.5 / 1.5 (the
+    kernels clamp it) mask (both skip what the mask leaves empty: the tap the
+    rows of a chunk, xs whole blocks): the tap and its copy floor at every
+    equal radius 1 .. 12 (its ring in shared memory up to 11, in global
+    scratch from 12), at 20, 32 and its limit, at three anisotropic scales
+    (rx != ry != rz) and at radii 2 / 25 / 2 (a ring in global scratch beside
+    small x and z radii); the xs entry at every x radius XS_DIRECT_RADII."""
+    from ife_tpu_torch import kernels as K
+    from ife_tpu_torch.ops.stencil import smooth_taps
+
+    dev = torch.device("cuda")
+    unit, sp = (1.0, 1.0, 1.0), (0.78, 0.6, 1.1)
+    top = tap_max_radius(K)
+    scales = [(r / 4.5, unit) for r in (*range(1, 13), 20, 32, top)]
+    scales += [(s, sp) for s in (0.5, 1.0, 1.3)] + [(1.1, (4.0, 0.2, 4.0))]
+    for sigma, h in scales:
+        if not K.tap_fits(sigma, h):
+            raise PhaseError(f"tap_fits does not take sigma {sigma} at {h}")
+    for shape in TAP_XS_SHAPES:
+        img, sphere = _inputs(shape, 0, dev)
+        masks = region_masks(shape, dev, sphere)
+        masks["clamped sphere"] = sphere * 2.0 - 0.5
+        for label, m in masks.items():
+            for sigma, h in scales:
+                r = tuple(smooth_taps(sigma, a)[1] for a in h)
+                rel, _ = kernel_check(
+                    f"features8_tap {shape} mask {label} radii {r}",
+                    K.fused_features8_tap(img, m, sigma, h, stack=False),
+                    K.features8_tap_plain(img, m, sigma, h))
+                errs["features8_tap"].append(rel)
+                bitwise_check(
+                    f"features8_tap_copyfloor {shape} mask {label} radii {r}",
+                    K.fused_features8_tap(img, m, sigma, h, stack=False,
+                                          variant="copyfloor"),
+                    K.features8_tap_copyfloor_plain(img, m))
+            for rx in XS_DIRECT_RADII:
+                sigma = (rx - 0.5) * sp[0] / 4.5
+                if (smooth_taps(sigma, sp[0])[1] != rx
+                        or not K.xs_fits(sigma, sp)):
+                    raise PhaseError(f"sigma {sigma}: not x radius {rx}")
+                rel, _ = kernel_check(
+                    f"features8_xs {shape} mask {label} rx {rx}",
+                    K.fused_features8_xs(img, m, sigma, sp, stack=False),
+                    K.features8_xs_plain(img, m, sigma, sp))
+                errs["features8_xs"].append(rel)
+        torch.cuda.synchronize()
+    say("kernels", f"tap and its copy floor at equal radii 1 .. 12, 20, 32, "
+        f"{top}, at sigma 0.5 / 1.0 / 1.3 on {sp} and at radii 2 / 25 / 2, xs "
+        f"at x radii {XS_DIRECT_RADII}, "
+        f"on {TAP_XS_SHAPES}, masks empty / one octant / full / sphere / "
+        "clamped sphere: bit-equal to the twins")
+
+
 def phase_kernels(errs):
     from ife_tpu_torch import kernels as K
 
@@ -908,6 +989,7 @@ def phase_kernels(errs):
             "1.2: bit-equal to the twins")
     sweep_radius_checks(errs)
     xs_ys_radius_checks(errs)
+    tap_xs_radius_checks(errs)
 
 
 def hist_edges(chans, E):
@@ -2464,9 +2546,10 @@ def launches_ms(fn, n):
 
 
 def sass_ldg_counts():
-    """mangled kernel name -> LDG instructions, of every Hessian and tap
-    instantiation in the built library (cuobjdump -sass), or None without
-    cuobjdump."""
+    """mangled kernel name -> {"LDG": n, "LDGSTS": n}: the global loads
+    (LDG) and the asynchronous global-to-shared copies (LDGSTS, cp.async)
+    of every Hessian and tap instantiation in the built library (cuobjdump
+    -sass), or None without cuobjdump."""
     from pathlib import Path
 
     from ife_tpu_torch.kernels import _build
@@ -2485,9 +2568,11 @@ def sass_ldg_counts():
             keep = "hessian_eig_kernel" in name or "features8_tap_kernel" in name
             name = name if keep else None
             if name:
-                counts[name] = 0
-        elif name and "LDG" in line:
-            counts[name] += 1
+                counts[name] = {"LDG": 0, "LDGSTS": 0}
+        elif name:
+            op = re.search(r"\b(LDG|LDGSTS)[.\s]", line)
+            if op:
+                counts[name][op.group(1)] += 1
     return counts
 
 
@@ -2604,15 +2689,28 @@ def phase_probes(img, mask, errs, results, library, modes=PROBE_MODES):
         if counts is None:
             say("probes", "LDG counts: not measured (no cuobjdump)")
         else:
-            say("probes", "LDG per instantiation: " + "; ".join(
-                f"{k} {v}" for k, v in sorted(counts.items())))
-            feats = [v for k, v in counts.items()
+            say("probes", "LDG / LDGSTS per instantiation: " + "; ".join(
+                f"{k} {v['LDG']} / {v['LDGSTS']}"
+                for k, v in sorted(counts.items())))
+            feats = [v["LDG"] for k, v in counts.items()
                      if "hessian_eig_kernelILi0ELi0E" in k]
-            floors = [v for k, v in counts.items()
+            floors = [v["LDG"] for k, v in counts.items()
                       if "hessian_eig_kernelILi0ELi1E" in k
                       or "hessian_eig_kernelILi0ELi2E" in k]
             if len(feats) != 1 or len(floors) != 2 or set(floors) != set(feats):
                 raise PhaseError(f"the copy floors do not keep the Hessian's "
+                                 f"loads: {counts}")
+            # the tap's row loads are cp.async (LDGSTS); the features (ring
+            # in shared memory) add the mask's loads of the emit (LDG), the
+            # copy floor has none
+            tap = {flag: v for k, v in counts.items()
+                   for flag in ("ILb0ELb1E", "ILb1ELb1E")
+                   if "features8_tap_kernel" + flag in k}
+            floor, feats = tap.get("ILb1ELb1E"), tap.get("ILb0ELb1E")
+            if (floor is None or feats is None or floor["LDGSTS"] < 1
+                    or floor["LDGSTS"] != feats["LDGSTS"]
+                    or floor["LDG"] > feats["LDG"]):
+                raise PhaseError(f"the tap's copy floor does not keep its "
                                  f"loads: {counts}")
     print(card_line(), flush=True)
 
@@ -2791,15 +2889,70 @@ def phase_ranks(world):
     print(card_line(), flush=True)
 
 
-def sweep_times(label):
-    """`--sweep-times [ROOT]`: one JSON line of 512^3 times (median, min, max
-    of 5, ms) of the sweep family of the ife_tpu_torch package on sys.path:
-    the sweep at sigma 0.6 / 1.2 / 1.7, with clamps and under a mask of ones,
-    sweep_multi, the staged pair, xs_stream at x radius 11 / 14 / 17 / 20
-    (14 also under a mask of ones), ys_multi at S = 1 .. 4 (S = 2 also under
-    a mask of ones), tap and xs, hessian_eig (and its copy floor where the
-    checkout has it). Run it on two checkouts in turns to compare them
-    within one call on one card."""
+def xs_kernel_alone(num, den, m, sigma, sp):
+    """The launch of fused_features8_xs after its y/z passes: the xs kernel
+    alone on fused_smooth_yz's num / den and the clamped mask m, through
+    the checkout's launcher (the C entry is the same in every checkout)."""
+    from ife_tpu_torch.kernels._build import launch
+    from ife_tpu_torch.kernels.features8_sweep import _c_taps
+    from ife_tpu_torch.kernels.hessian_eig import stencil_reciprocals
+    from ife_tpu_torch.ops.stencil import smooth_taps
+
+    tx, ntx = _c_taps(smooth_taps(float(sigma), float(sp[0]), 4.5)[0])
+    X, Y, Z = num.shape
+    out = torch.empty((8, X, Y, Z), dtype=num.dtype, device=num.device)
+    launch("features8_xs", num.device, num.data_ptr(), den.data_ptr(),
+           m.data_ptr(), out.data_ptr(), X, Y, Z, tx, ntx,
+           *stencil_reciprocals(sp))
+    return out
+
+
+def both_ms(fn):
+    """[call ms, device ms] of fn, each (median, min, max) of 5."""
+    return [[round(t, 3) for t in cuda_ms(fn)],
+            [round(t, 3) for t in device_ms(fn)]]
+
+
+def tap_xs_times(img, mask, sp):
+    """The direct entries' part of --sweep-times (both_ms each): the tap at
+    sigma 0.6 and 1.2, at equal radius 8 and at the largest equal radius its
+    tap_fits takes (unit spacing), its copy floor at 0.6 and 1.2, the xs
+    kernel alone on precomputed fused_smooth_yz outputs at 1.2 and 4.8, and
+    the whole xs entry at 1.2."""
+    from ife_tpu_torch import kernels as K
+
+    res = {}
+    for s in (0.6, 1.2):
+        res[f"tap {s}"] = both_ms(
+            lambda: K.fused_features8_tap(img, mask, s, sp))
+    unit = (1.0, 1.0, 1.0)
+    for r in sorted({8, tap_max_radius(K)}):
+        res[f"tap r {r}"] = both_ms(
+            lambda: K.fused_features8_tap(img, mask, r / 4.5, unit))
+    for s in (0.6, 1.2):
+        res[f"tap copyfloor {s}"] = both_ms(lambda: K.fused_features8_tap(
+            img, mask, s, sp, variant="copyfloor"))
+    m = mask.clamp(0, 1)
+    for s in (1.2, 4.8):
+        num, den = K.fused_smooth_yz(img, m, s, sp)
+        res[f"xs kernel {s}"] = both_ms(
+            lambda: xs_kernel_alone(num, den, m, s, sp))
+        del num, den
+    res["xs 1.2"] = both_ms(lambda: K.fused_features8_xs(img, mask, 1.2, sp))
+    torch.cuda.empty_cache()
+    return res
+
+
+def sweep_times(label, groups=("sweep", "tap")):
+    """`--sweep-times [ROOT [GROUP...]]`: one JSON line of 512^3 times
+    (both_ms: call ms and device ms, each median, min, max of 5) of the
+    ife_tpu_torch package on sys.path. Group "sweep": the sweep at sigma
+    0.6 / 1.2 / 1.7, with clamps and under a mask of ones, sweep_multi, the
+    staged pair, xs_stream at x radius 11 / 14 / 17 / 20 / 24 (14 also under
+    a mask of ones), ys_multi at S = 1 .. 4 (S = 2 also under a mask of
+    ones), hessian_eig (and its copy floor where the checkout has it); group
+    "tap": the direct entries (tap_xs_times). Run it on two checkouts in
+    turns to compare them within one call on one card."""
     from ife_tpu_torch import kernels as K
 
     if not torch.cuda.is_available():
@@ -2808,47 +2961,48 @@ def sweep_times(label):
     img, mask = _inputs(FULL, 2, "cuda")
     Y = FULL[1]
 
-    def ms(fn):
-        return [round(t, 3) for t in cuda_ms(fn)]
-
     res = {"label": label, "card": card_line()}
+    if "tap" in groups:
+        res.update(tap_xs_times(img, mask, sp))
+    if "sweep" not in groups:
+        print(json.dumps(res), flush=True)
+        return
     for s in SWEEP_VS_STAGED:
-        res[f"sweep {s}"] = ms(lambda: K.fused_features8_sweep(img, mask, s, sp))
-    res["sweep 1.2 clamps"] = ms(lambda: K.fused_features8_sweep(
+        res[f"sweep {s}"] = both_ms(
+            lambda: K.fused_features8_sweep(img, mask, s, sp))
+    res["sweep 1.2 clamps"] = both_ms(lambda: K.fused_features8_sweep(
         img, mask, 1.2, sp, clamps=[2, K.NO_FACE, -K.NO_FACE, Y - 3]))
     ones = torch.ones_like(mask)
-    res["sweep 1.2 mask of ones"] = ms(
+    res["sweep 1.2 mask of ones"] = both_ms(
         lambda: K.fused_features8_sweep(img, ones, 1.2, sp))
     del ones
-    res[f"sweep_multi {SWEEP_SIGMAS}"] = ms(
+    res[f"sweep_multi {SWEEP_SIGMAS}"] = both_ms(
         lambda: K.fused_features8_sweep_multi(img, mask, SWEEP_SIGMAS, sp))
     mf = mask.clamp(0, 1)
     for s in SWEEP_VS_STAGED:
-        res[f"nc+post {s}"] = ms(lambda: K.fused_features8_post_stream(
+        res[f"nc+post {s}"] = both_ms(lambda: K.fused_features8_post_stream(
             K.fused_normalized_conv_sweep(img, mf, s, sp), mf, sp))
     ones = torch.ones_like(mask)
     for rx in (11, 14, 17, 20, 24):
         sigma = round((rx - 0.5) * sp[0] / 4.5, 4)
         for label, m in (("", mask), (" mask of ones", ones))[:1 + (rx == 14)]:
             num, den = K.fused_smooth_yz(img, m, sigma, sp)
-            res[f"xs_stream rx {rx}{label}"] = ms(
+            res[f"xs_stream rx {rx}{label}"] = both_ms(
                 lambda: K.fused_features8_xs_stream(num, den, m, sigma, sp))
             del num, den
     for sigmas in YS_CHECK_SIGMAS:
         for label, m in (("", mask), (" mask of ones", ones))[
                 :1 + (sigmas == YS_SIGMAS)]:
             kern, _ = ys_multi_pair(img, m, sigmas, sp)
-            res[f"ys_multi {sigmas}{label}"] = ms(kern)
+            res[f"ys_multi {sigmas}{label}"] = both_ms(kern)
             del kern
     del ones
     torch.cuda.empty_cache()
-    res["tap 1.2"] = ms(lambda: K.fused_features8_tap(img, mask, 1.2, sp))
-    res["xs 1.2"] = ms(lambda: K.fused_features8_xs(img, mask, 1.2, sp))
-    res["hessian_eig"] = ms(lambda: K.fused_hessian_eig_stream(img, sp,
-                                                               stack=False))
+    res["hessian_eig"] = both_ms(
+        lambda: K.fused_hessian_eig_stream(img, sp, stack=False))
     # a checkout from before the probes has no variant
     if "variant" in inspect.signature(K.fused_hessian_eig).parameters:
-        res["hessian_eig copyfloor"] = ms(lambda: K.fused_hessian_eig(
+        res["hessian_eig copyfloor"] = both_ms(lambda: K.fused_hessian_eig(
             img, sp, stack=False, variant="copyfloor"))
     print(json.dumps(res), flush=True)
 
@@ -2861,9 +3015,12 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--sweep-times"]:
         other = os.path.abspath(sys.argv[2]) if len(sys.argv) > 2 else root
+        groups = tuple(sys.argv[3:]) or ("sweep", "tap")
         sys.path.insert(0, other)
         try:
-            sweep_times(other)
+            if not set(groups) <= {"sweep", "tap"}:
+                raise PhaseError(f"unknown groups {groups}: sweep, tap")
+            sweep_times(other, groups)
         except PhaseError as e:
             print(f"chip_smoke: --sweep-times failed: {e}", file=sys.stderr)
             return 1

@@ -131,8 +131,9 @@ features8_sweep_kernel(const float* __restrict__ image,
     // are zeros, and need no s
     __shared__ int span[2];
     int x_first, x_last;
-    sweep_mask_span(mask, xa, xb, y0, z0, Y, Z, span, x_first, x_last);
-    sweep_zero_planes(out, xa, xb, x_first, x_last, X, Y, Z, y0, z0);
+    const SweepColumns g = sweep_columns(y0, z0, Y, Z);
+    column_span(mask, g, xa, xb, span, x_first, x_last);
+    column_zeros(out, X * plane, g, xa, xb, x_first, x_last);
     if (x_first > x_last) return;  // the same for every thread of the block
     // s planes this block needs, and the input planes (clamped) behind them
     const int p_lo = max(x_first - 1, 0);

@@ -169,11 +169,11 @@ features8_sweep_multi_kernel(const float* __restrict__ image,
     // are zeros at every scale, and need no s
     __shared__ int span[2];
     int x_first, x_last;
-    sweep_mask_span(mask, xa, xb, y0, z0, Y, Z, span, x_first, x_last);
+    const SweepColumns g = sweep_columns(y0, z0, Y, Z);
+    column_span(mask, g, xa, xb, span, x_first, x_last);
 #pragma unroll
     for (int s = 0; s < S; ++s)
-        sweep_zero_planes(out + (long long)s * 8 * n, xa, xb, x_first, x_last,
-                          X, Y, Z, y0, z0);
+        column_zeros(out + (long long)s * 8 * n, n, g, xa, xb, x_first, x_last);
     if (x_first > x_last) return;  // the same for every thread of the block
     const int p_lo = max(x_first - 1, 0);
     const int p_hi = min(x_last + 1, X - 1);

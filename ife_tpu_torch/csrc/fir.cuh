@@ -37,18 +37,17 @@ __device__ __forceinline__ int clamp_index(int i, int n) {
 }
 
 // kRun consecutive outputs of a tap-ordered FIR, for kArrays arrays at once,
-// from ONE walk over the 2r + kRun inputs they share: col[a] points at the
-// input of the first output's tap 0 in shared memory, inputs lie `stride`
-// floats apart, and input i feeds output u with tap i - u where that is a
-// tap. Each output is still summed in tap order, tap 0's product first, so
-// it equals out = sum_k t[k] * in[k] evaluated one output at a time; an
-// input leaves shared memory once for kRun outputs. Edge steps (the first
-// kRun and the last kRun - 1 inputs) test the tap's range; the steps
-// between feed all kRun outputs, none with tap 0. TapsT: Taps or TapsView.
-template <int kRun, int kArrays, class TapsT>
-__device__ __forceinline__ void fir_walk(const float* const (&col)[kArrays],
-                                         int stride, const TapsT& taps,
-                                         float (&acc)[kArrays][kRun]) {
+// from ONE walk over the 2r + kRun inputs they share: load(i, v) sets v[a] to
+// input i of array a, and input i feeds output u with tap i - u where that
+// is a tap. Each output is still summed in tap order, tap 0's product first,
+// so it equals out = sum_k t[k] * in[k] evaluated one output at a time; an
+// input is read once for kRun outputs. Edge steps (the first kRun and the
+// last kRun - 1 inputs) test the tap's range; the steps between feed all
+// kRun outputs, none with tap 0. TapsT: Taps or TapsView.
+template <int kRun, int kArrays, class TapsT, class Load>
+__device__ __forceinline__ void fir_walk_by(const Load& load,
+                                            const TapsT& taps,
+                                            float (&acc)[kArrays][kRun]) {
     const int nt = 2 * taps.r + 1;
 #pragma unroll
     for (int a = 0; a < kArrays; ++a)
@@ -56,8 +55,7 @@ __device__ __forceinline__ void fir_walk(const float* const (&col)[kArrays],
         for (int u = 0; u < kRun; ++u) acc[a][u] = 0.0f;
     auto step = [&](int i, bool edge) {
         float v[kArrays];
-#pragma unroll
-        for (int a = 0; a < kArrays; ++a) v[a] = col[a][i * stride];
+        load(i, v);
 #pragma unroll
         for (int u = 0; u < kRun; ++u) {
             const int k = i - u;
@@ -72,4 +70,18 @@ __device__ __forceinline__ void fir_walk(const float* const (&col)[kArrays],
     for (int i = 0; i < kRun; ++i) step(i, true);
     for (int i = kRun; i < hi; ++i) step(i, false);
     for (int i = hi; i < nt + kRun - 1; ++i) step(i, true);
+}
+
+// fir_walk_by over shared memory: col[a] points at the input of the first
+// output's tap 0, inputs lie `stride` floats apart.
+template <int kRun, int kArrays, class TapsT>
+__device__ __forceinline__ void fir_walk(const float* const (&col)[kArrays],
+                                         int stride, const TapsT& taps,
+                                         float (&acc)[kArrays][kRun]) {
+    fir_walk_by<kRun, kArrays>(
+        [&](int i, float (&v)[kArrays]) {
+#pragma unroll
+            for (int a = 0; a < kArrays; ++a) v[a] = col[a][i * stride];
+        },
+        taps, acc);
 }

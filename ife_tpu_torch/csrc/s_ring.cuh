@@ -1,8 +1,9 @@
 // The last step of every kernel that holds smoothed planes in shared memory
 // (a ring of three while sweeping x: features8_sweep.cu,
-// features8_ys_multi.cu; a block's whole window: features8_tap.cu): emit the
-// eight masked channels of plane x on the block's (y, z) tile through the one
-// tail of features8_tail.cuh.
+// features8_ys_multi.cu; a block's window of planes: features8_tap.cu's xs
+// kernel; a ring of three rows while sweeping y: its tap kernel): emit the
+// eight masked channels of plane x on the block's (y, z) tile, or of row y on
+// its (x, z) tile, through the one tail of features8_tail.cuh.
 //
 // A ring holds s on the tile plus a one-voxel halo: plane p lives in slot
 // p % 3, and cell (i, j) of a plane is s at the CLAMPED position
@@ -46,6 +47,20 @@ __device__ __forceinline__ int upper_neighbour(int i, int hi, int n) {
     return i >= hi ? i : min(i + 1, n - 1);
 }
 
+// The tail at voxel i (its offset in a channel of n voxels) from its
+// neighbourhood v, into the eight channels of out.
+__device__ __forceinline__ void store_features8(const float (&v)[3][3][3],
+                                                const StencilRecip& k,
+                                                float* __restrict__ out,
+                                                long long n, long long i) {
+    float gm, h[6], f[6];
+    features8_tail(v, k, gm, h, f);
+    out[i] = v[1][1][1];
+    out[n + i] = gm;
+#pragma unroll
+    for (int c = 0; c < 6; ++c) out[(c + 2) * n + i] = f[c];
+}
+
 // Emit plane x from the three planes s3 = {s at the x - 1 neighbour, s at x,
 // s at the x + 1 neighbour} (the caller resolved the x faces), each
 // [(kTileY + 2) * (kTileZ + 2)] floats: cell (i, j) is s at the CLAMPED
@@ -87,12 +102,49 @@ __device__ __forceinline__ void emit_features8_planes(
                     if (da != 1 && db != 1 && dc != 1) continue;
                     v[da][db][dc] = s3[da][iy[db] * SZ + iz[dc]];
                 }
-        float gm, h[6], f[6];
-        features8_tail(v, k, gm, h, f);
-        out[i] = v[1][1][1];
-        out[n + i] = gm;
+        store_features8(v, k, out, n, i);
+    }
+}
+
+// Emit row y of an (x, z) tile from the three rows s3 = {s at the y - 1
+// neighbour, s at y, s at the y + 1 neighbour} (the caller resolved the y
+// faces), each [(kTileX + 2) * (kTileZ + 2)] floats: cell (i, j) is s at the
+// CLAMPED position (clamp(x0 - 1 + i), clamp(z0 - 1 + j)). The row sweep of
+// features8_tap.cu emits through it; x and z clamp at the array's faces.
+template <int kTileX, int kTileZ, bool kClampMask>
+__device__ __forceinline__ void emit_features8_row(
+    const float* const (&s3)[3], int y, int X, int Y, int Z, int x0, int z0,
+    const float* __restrict__ mask, float* __restrict__ out,
+    const StencilRecip& k) {
+    constexpr int SZ = kTileZ + 2;
+    const long long plane = (long long)Y * Z;
+    const long long n = (long long)X * plane;
+    for (int idx = threadIdx.x; idx < kTileX * kTileZ; idx += blockDim.x) {
+        const int x = x0 + idx / kTileZ;
+        const int z = z0 + idx % kTileZ;
+        if (x >= X || z >= Z) continue;
+        const long long i = x * plane + (long long)y * Z + z;
+        const float m = __ldg(mask + i);
+        if ((kClampMask ? clamp_unit_mask(m) : m) == 0.0f) {
 #pragma unroll
-        for (int c = 0; c < 6; ++c) out[(c + 2) * n + i] = f[c];
+            for (int c = 0; c < 8; ++c) out[c * n + i] = 0.0f;
+            continue;
+        }
+        const int ix[3] = {clamp_index(x - 1, X) - x0 + 1, x - x0 + 1,
+                           clamp_index(x + 1, X) - x0 + 1};
+        const int iz[3] = {clamp_index(z - 1, Z) - z0 + 1, z - z0 + 1,
+                           clamp_index(z + 1, Z) - z0 + 1};
+        float v[3][3][3];
+#pragma unroll
+        for (int da = 0; da < 3; ++da)
+#pragma unroll
+            for (int db = 0; db < 3; ++db)
+#pragma unroll
+                for (int dc = 0; dc < 3; ++dc) {
+                    if (da != 1 && db != 1 && dc != 1) continue;
+                    v[da][db][dc] = s3[db][ix[da] * SZ + iz[dc]];
+                }
+        store_features8(v, k, out, n, i);
     }
 }
 

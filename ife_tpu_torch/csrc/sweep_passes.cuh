@@ -8,7 +8,7 @@
 // tile plus a one-voxel halo: kSweepSY x kSweepSZ = 544 cells, and the block
 // has exactly one thread per cell. Before the sweep the block finds the
 // planes of its chunk on which its tile holds a voxel inside the mask
-// (sweep_mask_span): it sweeps only those (plus one each side, for the
+// (column_span): it sweeps only those (plus one each side, for the
 // stencil) and stores zeros on the rest, so the time follows the mask: a
 // lung or a sphere leaves most planes of most tiles empty. Per raw plane q
 // of the sweep:
@@ -144,16 +144,20 @@ __device__ __forceinline__ void sweep_issue_raw(
     }
 }
 
-// Wait for this thread's elements and turn them into c*f and c in place.
-// The caller's next barrier shows them to the block.
-__device__ __forceinline__ void sweep_finish_raw(const RawTile& t, float* pn,
-                                                 float* pd) {
+// Wait for this thread's elements of a raw buffer of n cells and turn them
+// into c*f and c in place. The caller's next barrier shows them to the block.
+__device__ __forceinline__ void sweep_finish_raw(int n, float* pn, float* pd) {
     cp_async_wait_all();
-    for (int idx = threadIdx.x; idx < t.n; idx += kSweepThreads) {
+    for (int idx = threadIdx.x; idx < n; idx += kSweepThreads) {
         const float c = clamp_unit_mask(pd[idx]);
         pn[idx] = pn[idx] * c;  // c*f rounded, as plain
         pd[idx] = c;
     }
+}
+
+__device__ __forceinline__ void sweep_finish_raw(const RawTile& t, float* pn,
+                                                 float* pd) {
+    sweep_finish_raw(t.n, pn, pd);
 }
 
 // kRun consecutive outputs of a tap-ordered FIR from one walk:
@@ -291,44 +295,63 @@ __device__ __forceinline__ void sweep_emit(const float* ring, int p, int xa,
     }
 }
 
-// The planes of the chunk [xa, xb) on which the block's tile holds a voxel
-// inside the mask: first .. last (first > last when there is none). Outside
-// the mask every channel is 0 whatever s is, so only the s planes first - 1
-// .. last + 1 are ever read: the block sweeps those and stores zeros on the
-// other planes of its chunk (sweep_zero_planes). On a lung mask or a sphere
-// most of a volume's planes fall away here. span: two ints of shared memory.
-// Not inlined (nor is sweep_zero_planes): they run once, ahead of the sweep,
-// and must not cost the sweep's loop a register.
-static __device__ __noinline__ void sweep_mask_span(const float* __restrict__ mask,
-                                                int xa, int xb, int y0, int z0,
-                                                int Y, int Z, int* span,
-                                                int& first, int& last) {
-    constexpr int kBatch = 8;  // planes a thread looks at between barriers
+// The columns of a block that sweeps along one axis: its tile is
+// kSweepTileY rows (u0 .. along an axis of nu voxels, u_stride floats apart)
+// by kSweepTileZ voxels of z (z0 ..); thread t < kSweepTileY * kSweepTileZ
+// owns tile voxel (t / kSweepTileZ, t % kSweepTileZ), and its column holds
+// that voxel at every step of the sweep, `step` floats apart. The sweeps
+// take (y, z) tiles and step along x; the tap kernel (features8_tap.cu)
+// takes (x, z) tiles and steps along y. The functions below take the
+// geometry, not a thread's column, so that a kernel held to few registers
+// keeps nothing live across their calls.
+struct SweepColumns {
+    int u0, nu, z0, Z;
+    long long u_stride, step;
+
+    // this thread's column at step 0 in `off`; false when it has none
+    __device__ __forceinline__ bool column(long long& off) const {
+        const int u = u0 + threadIdx.x / kSweepTileZ;
+        const int z = z0 + threadIdx.x % kSweepTileZ;
+        off = u * u_stride + z;
+        return threadIdx.x < kSweepTileY * kSweepTileZ && u < nu && z < Z;
+    }
+};
+
+// The steps [a, b) at which one of the block's columns holds a voxel inside
+// the mask: first .. last (first > last when there is none). Outside the
+// mask every channel is 0 whatever s is, so only the s planes (rows)
+// first - 1 .. last + 1 are ever read: the block sweeps those and stores
+// zeros on the other steps of its chunk (column_zeros). On a lung mask or a
+// sphere most of a volume's planes fall away here. span: two ints of shared
+// memory. Not inlined (nor is column_zeros): they run once, ahead of the
+// sweep, and must not cost the sweep's loop a register.
+static __device__ __noinline__ void column_span(const float* __restrict__ mask,
+                                                SweepColumns g, int a, int b,
+                                                int* span, int& first,
+                                                int& last) {
+    constexpr int kBatch = 8;  // steps a thread looks at between barriers
     if (threadIdx.x == 0) {
-        span[0] = xb;
-        span[1] = xa - 1;
+        span[0] = b;
+        span[1] = a - 1;
     }
     __syncthreads();
-    const int y = y0 + threadIdx.x / kSweepTileZ;
-    const int z = z0 + threadIdx.x % kSweepTileZ;
-    const bool mine =
-        threadIdx.x < kSweepTileY * kSweepTileZ && y < Y && z < Z;
-    const long long plane = (long long)Y * Z;
-    const float* col = mask + (long long)y * Z + z;
-    // from the front, a batch of planes at a time, until one holds a voxel
+    long long off;
+    const bool mine = g.column(off);
+    const float* col = mask + off;
+    // from the front, a batch of steps at a time, until one holds a voxel
     // inside; then from the back. A dense mask ends both after one batch.
-    first = xb;
-    last = xa - 1;
-    for (int xs = xa; xs < xb; xs += kBatch) {
-        int lo = xb;
+    first = b;
+    last = a - 1;
+    for (int xs = a; xs < b; xs += kBatch) {
+        int lo = b;
         if (mine) {
 #pragma unroll
             for (int j = kBatch - 1; j >= 0; --j)
-                if (xs + j < xb
-                    && clamp_unit_mask(__ldg(col + (xs + j) * plane)) != 0.0f)
+                if (xs + j < b
+                    && clamp_unit_mask(__ldg(col + (xs + j) * g.step)) != 0.0f)
                     lo = xs + j;
         }
-        if (__syncthreads_or(lo < xb)) {
+        if (__syncthreads_or(lo < b)) {
             lo = __reduce_min_sync(0xffffffffu, lo);
             if (threadIdx.x % 32 == 0) atomicMin(&span[0], lo);
             __syncthreads();
@@ -336,17 +359,17 @@ static __device__ __noinline__ void sweep_mask_span(const float* __restrict__ ma
             break;
         }
     }
-    if (first == xb) return;
-    for (int xs = xb - 1; xs >= first; xs -= kBatch) {
-        int hi = xa - 1;
+    if (first == b) return;
+    for (int xs = b - 1; xs >= first; xs -= kBatch) {
+        int hi = a - 1;
         if (mine) {
 #pragma unroll
             for (int j = kBatch - 1; j >= 0; --j)
                 if (xs - j >= first
-                    && clamp_unit_mask(__ldg(col + (xs - j) * plane)) != 0.0f)
+                    && clamp_unit_mask(__ldg(col + (xs - j) * g.step)) != 0.0f)
                     hi = xs - j;
         }
-        if (__syncthreads_or(hi >= xa)) {
+        if (__syncthreads_or(hi >= a)) {
             hi = __reduce_max_sync(0xffffffffu, hi);
             if (threadIdx.x % 32 == 0) atomicMax(&span[1], hi);
             __syncthreads();
@@ -356,29 +379,32 @@ static __device__ __noinline__ void sweep_mask_span(const float* __restrict__ ma
     }
 }
 
-// Zeros on the planes of the chunk [xa, xb) outside first .. last, for the
-// block's tile, in all 8 channels of `out`.
-static __device__ __noinline__ void sweep_zero_planes(float* __restrict__ out,
-                                                  int xa, int xb, int first,
-                                                  int last, int X, int Y, int Z,
-                                                  int y0, int z0) {
-    const int y = y0 + threadIdx.x / kSweepTileZ;
-    const int z = z0 + threadIdx.x % kSweepTileZ;
-    if (threadIdx.x >= kSweepTileY * kSweepTileZ || y >= Y || z >= Z) return;
-    const long long plane = (long long)Y * Z;
-    const long long n = (long long)X * plane;
-    for (int x = xa; x < xb; ++x) {
+// Zeros at the steps [a, b) outside first .. last of the block's columns,
+// in all 8 channels of `out`, n voxels a channel.
+static __device__ __noinline__ void column_zeros(float* __restrict__ out,
+                                                 long long n, SweepColumns g,
+                                                 int a, int b, int first,
+                                                 int last) {
+    long long off;
+    if (!g.column(off)) return;
+    for (int x = a; x < b; ++x) {
         if (x >= first && x <= last) {
             x = last;
             continue;
         }
-        const long long i = x * plane + (long long)y * Z + z;
+        const long long i = off + x * g.step;
 #pragma unroll
         for (int c = 0; c < 8; ++c) out[c * n + i] = 0.0f;
     }
 }
 
-// sweep_mask_span and sweep_zero_planes for a block of any (kTileY, kTileZ)
+// The sweeps' columns: (y, z) tiles, stepping along x.
+__device__ __forceinline__ SweepColumns sweep_columns(int y0, int z0, int Y,
+                                                      int Z) {
+    return SweepColumns{y0, Y, z0, Z, Z, (long long)Y * Z};
+}
+
+// column_span and column_zeros for a block of any (kTileY, kTileZ)
 // tile and kThreads threads (a multiple of 32), which deal the tile's
 // columns among them, kPer each, fixed at compile time: the xs-stream kernel
 // (tiles of 4 to 14 rows) and ys_multi (30 x 32 voxels, 288 threads) use
@@ -464,7 +490,7 @@ static __device__ __noinline__ void tile_mask_span(const float* __restrict__ mas
     }
 }
 
-// sweep_zero_planes for a (kTileY, kTileZ) tile and kThreads threads.
+// column_zeros for a (kTileY, kTileZ) tile and kThreads threads.
 template <int kTileY, int kTileZ, int kThreads>
 static __device__ __noinline__ void tile_zero_planes(float* __restrict__ out,
                                                   int xa, int xb, int first,

@@ -94,7 +94,7 @@ _SIGNATURES = {
     "ife_features8_sweep_multi": [_P, _P, _P, _I, _I, _I, _I, _P, _P]
                                  + [_I] * 4 + [_F] * 6 + [_P],
     "ife_features8_tap": [_P, _P, _P, _I, _I, _I, _FP, _I, _FP, _I, _FP, _I]
-                         + [_F] * 6 + [_I, _P],
+                         + [_F] * 6 + [_I, _P, _I, _P],
     "ife_features8_xs": [_P, _P, _P, _P, _I, _I, _I, _FP, _I] + [_F] * 6
                         + [_P],
     "ife_pcopy1": [_P, _P, _I, _I, _F, _P],

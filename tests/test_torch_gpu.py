@@ -682,26 +682,60 @@ def _stacked(chans):
     return chans if isinstance(chans, torch.Tensor) else torch.stack(list(chans))
 
 
-@pytest.mark.parametrize("shape", SHAPES + [(5, 40, 33), (40, 9, 33)])
-@pytest.mark.parametrize("sigma", [0.6, 1.2])
-def test_tap_and_xs_equal_their_twins(cuda, shape, sigma):
-    img, mask = _inputs(shape, cuda)
-    labels = mask * 2.0  # clamped in the kernels
-    assert _same(K.fused_features8_tap(img, labels, sigma, SPACING),
-                 _stacked(K.features8_tap_plain(img, labels, sigma, SPACING)))
-    assert _same(K.fused_features8_xs(img, labels, sigma, SPACING),
-                 _stacked(K.features8_xs_plain(img, labels, sigma, SPACING)))
+# the direct entries' tiles (csrc/features8_tap.cu): the tap sweeps y over
+# (x, z) tiles of 14 x 32 in chunks of >= 128 rows, xs takes (y, z) tiles of
+# 14 x 32 and 16 planes of x; shapes thin, prime, and one voxel over a tile
+# or a chunk on each axis
+TAP_XS_SHAPES = SHAPES + [(5, 40, 33), (40, 9, 33), (15, 129, 33),
+                          (17, 15, 33), (29, 31, 97)]
+UNIT = (1.0, 1.0, 1.0)
+# (sigma, spacing): sigma 0.6 and 1.2 at SPACING (rx != ry != rz); equal
+# radii 1, 8, 11 (the last with the tap's ring in shared memory), 12 (in
+# global scratch) and 29 at unit spacing; radii 2 / 25 / 2 (a ring in global
+# scratch beside small x and z radii)
+TAP_XS_SCALES = [(0.6, SPACING), (1.2, SPACING), (1 / 4.5, UNIT),
+                 (8 / 4.5, UNIT), (11 / 4.5, UNIT), (12 / 4.5, UNIT),
+                 (29 / 4.5, UNIT), (1.1, (4.0, 0.2, 4.0))]
+
+
+def _region_mask(kind, shape, dev):
+    """The sphere (times 2: the kernels clamp it), or a mask that leaves
+    everything, all but one octant, or nothing empty: the kernels skip rows
+    (tap) and blocks (xs) with no voxel inside and store zeros there."""
+    if kind == "sphere":
+        return _inputs(shape, dev)[1] * 2.0
+    m = torch.zeros(shape, device=dev)
+    if kind == "one octant":
+        m[: (shape[0] + 1) // 2, : (shape[1] + 1) // 2, : (shape[2] + 1) // 2] = 1.0
+    elif kind == "full":
+        m += 1.0
+    return m
+
+
+@pytest.mark.parametrize("shape", TAP_XS_SHAPES)
+@pytest.mark.parametrize("sigma,spacing", TAP_XS_SCALES)
+@pytest.mark.parametrize("mask_kind", ["sphere", "empty", "one octant", "full"])
+def test_tap_and_xs_equal_their_twins(cuda, shape, sigma, spacing, mask_kind):
+    img = _inputs(shape, cuda)[0]
+    labels = _region_mask(mask_kind, shape, cuda)
+    assert _same(K.fused_features8_tap(img, labels, sigma, spacing),
+                 _stacked(K.features8_tap_plain(img, labels, sigma, spacing)))
+    assert _same(K.fused_features8_xs(img, labels, sigma, spacing),
+                 _stacked(K.features8_xs_plain(img, labels, sigma, spacing)))
     # xs runs the sweep's passes in the sweep's order
-    assert _same(K.fused_features8_xs(img, labels, sigma, SPACING),
-                 K.fused_features8_sweep(img, labels, sigma, SPACING))
+    if K.sweep_fits(sigma, spacing):
+        assert _same(K.fused_features8_xs(img, labels, sigma, spacing),
+                     K.fused_features8_sweep(img, labels, sigma, spacing))
 
 
 def test_tap_and_xs_raise_beyond_their_windows(cuda):
     img, mask = _inputs((13, 12, 11), cuda)
     with pytest.raises(ValueError, match="tap_fits"):
-        K.fused_features8_tap(img, mask, 2.4)       # r = 11 > 8
+        K.fused_features8_tap(img, mask, 10.0)      # r = 45 > 44
     with pytest.raises(ValueError, match="xs_fits"):
-        K.fused_features8_xs(img, mask, 7.0)        # rx = 32 > 29
+        K.fused_features8_xs(img, mask, 29.0)       # rx = 131 > 128
+    assert K.fused_features8_tap(img, mask, 44 / 4.5).shape == (8, 13, 12, 11)
+    assert K.fused_features8_xs(img, mask, 7.0).shape == (8, 13, 12, 11)
     assert K.fused_features8_xs(img, mask, 4.8, (0.78, 0.78, 1.0)).shape == (8, 13, 12, 11)
 
 
@@ -762,13 +796,14 @@ def test_hessian_probe_outputs_equal_their_twins(cuda, shape, mode):
         k: launches if k == name else 0 for k in K.LAUNCHES}
 
 
-@pytest.mark.parametrize("shape", SHAPES + [(128, 124, 120), (5, 40, 33)])
-@pytest.mark.parametrize("sigma", [0.6, 1.2])
-def test_tap_copyfloor_equals_its_twin(cuda, shape, sigma):
-    img, mask = _inputs(shape, cuda)
-    labels = mask * 2.0 - 0.5  # -0.5 and 1.5: clamped to 0 and 1
+@pytest.mark.parametrize("shape", TAP_XS_SHAPES + [(128, 124, 120)])
+@pytest.mark.parametrize("sigma,spacing", TAP_XS_SCALES)
+@pytest.mark.parametrize("mask_kind", ["sphere", "empty", "one octant", "full"])
+def test_tap_copyfloor_equals_its_twin(cuda, shape, sigma, spacing, mask_kind):
+    img = _inputs(shape, cuda)[0]
+    labels = _region_mask(mask_kind, shape, cuda) - 0.5  # clamped to [0, 1]
     before = K.LAUNCHES["features8_tap_copyfloor"]
-    got = K.fused_features8_tap(img, labels, sigma, SPACING, stack=False,
+    got = K.fused_features8_tap(img, labels, sigma, spacing, stack=False,
                                 variant="copyfloor")
     assert _bits(got, K.features8_tap_copyfloor_plain(img, labels))
     assert K.LAUNCHES["features8_tap_copyfloor"] - before == 1
@@ -790,7 +825,7 @@ def test_probe_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="whole volume"):
         K.fused_hessian_eig(img, variant="copyfloor", pre_padded=True)
     with pytest.raises(ValueError, match="tap_fits"):
-        K.fused_features8_tap(img, img, 2.4, variant="copyfloor")
+        K.fused_features8_tap(img, img, 10.0, variant="copyfloor")  # r = 45
 
 
 @pytest.mark.parametrize("shape", SHAPES + [(5, 40, 33)])

@@ -32,8 +32,11 @@ SPACING = (0.7, 0.9, 1.2)
 KINDS = {"tap": (K.fused_features8_tap, JF.fused_features8_tap),
          "xs": (K.fused_features8_xs, JF.fused_features8_xs)}
 # (shape, seed, sigma): a whole volume; a radius (17 voxels on the 0.7 axis)
-# larger than the volume; prime extents
-CASES = [((16, 16, 16), 5, 1.1), ((16, 16, 16), 6, 2.5), ((13, 11, 16), 7, 0.9)]
+# larger than the volume; prime extents; radii 8 / 7 / 5 (rx != ry != rz) on
+# extents one voxel over the kernels' tiles: 15 x-rows over the tap's 14,
+# 17 planes over the xs kernel's 16, 33 z over both kernels' 32
+CASES = [((16, 16, 16), 5, 1.1), ((16, 16, 16), 6, 2.5), ((13, 11, 16), 7, 0.9),
+         ((15, 17, 33), 8, 1.3)]
 
 
 def _inputs(shape, seed, dtype=jnp.float64):
@@ -114,15 +117,76 @@ def test_tap_smooths_x_y_z_and_xs_is_the_sweeps_twin():
 
 def test_windows_fit_shared_memory_up_to_the_stated_radii():
     unit = (1.0, 1.0, 1.0)
-    # tap: r <= 8 voxels on every axis
-    assert tap_mod.tap_smem_bytes(8, 8, 8) <= 227 * 1024 < tap_mod.tap_smem_bytes(9, 9, 9)
-    assert K.tap_fits(8 / 4.5, unit) and not K.tap_fits(8.5 / 4.5, unit)
+    smem = 227 * 1024
+    # tap: the whole block (two raw rows, the ring of 2ry + 1 x-pass rows,
+    # the y pass and three s rows) in shared memory up to r = 11 at equal
+    # radii; beyond, the ring in global scratch and the rest in shared
+    # memory up to r = 44. So r <= 8 voxels on every axis is taken.
+    assert tap_mod.tap_smem_bytes(8, 8, 8) <= tap_mod.tap_smem_bytes(11, 11, 11) <= smem
+    assert smem < tap_mod.tap_smem_bytes(12, 12, 12)
+    assert tap_mod._tap_base_bytes(44, 44) <= smem < tap_mod._tap_base_bytes(45, 45)
+    assert all(K.tap_fits(r / 4.5, unit) for r in range(1, 45))
+    assert not K.tap_fits(45 / 4.5, unit) and not K.tap_fits(1.0, (0.1, 1.0, 0.1))
     assert K.tap_fits(0.6, (0.78, 0.78, 1.0)) and K.tap_fits(1.2, (0.78, 0.78, 1.0))
-    # xs: rx <= 29 voxels, whatever the y and z radii
-    assert tap_mod.xs_smem_bytes(29) <= 227 * 1024 < tap_mod.xs_smem_bytes(30)
-    assert K.xs_fits(29 / 4.5, unit) and not K.xs_fits(29.5 / 4.5, unit)
+    assert K.tap_fits(1.1, (4.0, 0.2, 4.0))  # radii 2 / 25 / 2: a global ring
+    # xs: the x pass runs from global memory; its 18 s planes take 39 KB at
+    # every radius, so every radius the taps of a launch carry is taken:
+    # rx <= 29 and far beyond, up to 128
+    assert tap_mod.xs_smem_bytes() == 4 * 18 * 16 * 34 <= 48 * 1024
+    assert K.xs_fits(29 / 4.5, unit) and K.xs_fits(128 / 4.5, unit)
+    assert not K.xs_fits(129 / 4.5, unit)
     assert K.xs_fits(4.8, (0.78, 0.78, 1.0))
     assert not K.xs_fits(1.0, (1.0, 0.004, 1.0))  # ry beyond the taps of a launch
+
+
+def test_tap_takes_every_radius_the_block_windows_took():
+    # the window kernel this one replaced (8 x 8 x 32 cores): a raw window,
+    # its x pass and the smoothed fields of one block within 227 KB
+    def window_bytes(rx, ry, rz):
+        wyz = (10 + 2 * ry) * (34 + 2 * rz)
+        return 4 * ((10 + 2 * rx) * wyz + 10 * wyz + 2 * 10 * 10 * 34)
+
+    smem, taken = 227 * 1024, 0
+    for rx in range(0, 81, 2):
+        for ry in range(0, 33):
+            for rz in range(0, 112, 3):
+                if window_bytes(rx, ry, rz) <= smem:
+                    taken += 1
+                    assert tap_mod._tap_base_bytes(rx, rz) <= smem, (rx, ry, rz)
+    assert taken > 1000
+
+
+@pytest.mark.parametrize("shape,r,blocks", [
+    ((512, 512, 512), (7, 7, 6), 0),          # the ring in shared memory
+    ((512, 512, 512), (1, 25, 1), 16 * 37),   # chunk min(512, 832): one
+    ((40, 300, 33), (0, 5, 46), 2 * 3 * 2),   # chunks of 192 rows
+    ((13, 12, 11), (12, 12, 12), 1)])
+def test_tap_ring_scratch_holds_a_ring_a_block(shape, r, blocks):
+    ring = (2 * r[1] + 1) * 2 * 16 * (34 + 2 * r[2])
+    assert tap_mod.tap_ring_scratch_floats(shape, *r) == ring * blocks
+    assert (blocks == 0) == (tap_mod.tap_smem_bytes(*r) <= 227 * 1024)
+
+
+@pytest.mark.parametrize("r", [(7, 7, 6), (4, 4, 3), (8, 8, 8), (3, 9, 5),
+                               (11, 11, 11), (0, 0, 0), (2, 1, 17)])
+def test_tap_block_memory_counts_its_buffers(r):
+    # floats of each buffer of csrc tap_smem_floats, counted from the block's
+    # geometry: a 14 x 32 core, its s region 16 x 34
+    rx, ry, rz = r
+    pz = 34 + 2 * rz
+    pad = 34 + -(-2 * rz // 32) * 32  # rows of the y pass buffer: 34 mod 32
+    assert pad >= pz and pad % 32 == 2
+    raw = 2 * 2 * (16 + 2 * rx) * pz   # two rows, c*f and c
+    ring = (2 * ry + 1) * 2 * 16 * pz  # 2ry + 1 x-pass rows of both fields
+    ybuf = 2 * 16 * pad                # the y pass of both fields
+    srows = 3 * 16 * 34
+    assert tap_mod.tap_smem_bytes(rx, ry, rz) == 4 * (raw + ring + ybuf + srows)
+    # sigma 1.2 at 0.78 mm (radii 7 / 7 / 6): one block an SM; sigma 0.6
+    # (4 / 4 / 3): two, under the 56 registers a thread the kernel is held to
+    if r == (7, 7, 6):
+        assert 113 * 1024 < tap_mod.tap_smem_bytes(*r) == 125376
+    if r == (4, 4, 3):
+        assert 2 * (tap_mod.tap_smem_bytes(*r) + 1024) <= 228 * 1024
 
 
 def test_other_devices_never_reach_the_twins(monkeypatch):
