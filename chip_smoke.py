@@ -4,9 +4,11 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --ranks 4     # the sharded path, one rank per card
     python3 chip_smoke.py --sweep-times [ROOT [GROUP...]]  # the sweep
-                                        # family's (GROUP sweep) and the
-                                        # direct entries' (GROUP tap) 512^3
-                                        # times of the checkout under ROOT
+                                        # family's (GROUP sweep), the
+                                        # direct entries' (GROUP tap) and
+                                        # the Hessian kernel's (GROUP
+                                        # hessian) 512^3 times of the
+                                        # checkout under ROOT
     python3 chip_smoke.py --hist-times [ROOT]    # the histogram's 512^3
                                         # shapes, call ms and device ms, of
                                         # the checkout under ROOT
@@ -28,7 +30,8 @@ failing phase exits non-zero:
   2. build    compile the CUDA kernels of ife_tpu_torch/csrc (timed);
   3. kernels  each kernel against its plain PyTorch twin on the card, at
               (128,124,120) and (64,64,64), spacing (0.78,0.78,1.0) and
-              (0.7,0.9,1.2), sigma 0.6/1.2/2.4/4.8 (the sweep and xs-stream
+              (0.7,0.9,1.2) (the Hessian kernel's features and its reference
+              output), sigma 0.6/1.2/2.4/4.8 (the sweep and xs-stream
               kernels where their rings fit shared memory; the tiled
               normalized convolution with 1-4 slabs, also against the
               untiled kernel; the windowed post kernel at three block
@@ -71,7 +74,9 @@ failing phase exits non-zero:
               before each and read after it. Features: the CLI
               (extract-features -s 0.6 2.4, hessian-features with and
               without --fused) on a 256x256x128 NIfTI, outputs checked
-              against the plain f64 ops, then features8_auto_channels at
+              against the plain f64 ops (hessian-features without --fused
+              also per channel against hessian_eig_reference_plain: ife_tpu's
+              hessian_eig_features, bit for bit), then features8_auto_channels at
               sigma 1.2 and 4.8, fused_features8 on its xs-stream branch at
               2.4 and hessian_eig_features_channels at 512^3. Bags: the CLI generate-rois,
               determine-bin-edges -s 0.6 2.4 --bins 32 over two volumes,
@@ -140,8 +145,8 @@ failing phase exits non-zero:
               from;
   6. profile  device time per CUDA kernel launch of one features8 pass per
               sigma, one Hessian+eig pass (the hessian-features route,
-              hessian_eig_features_channels: the kernel and no other
-              launch), one config-4 histogram, one
+              hessian_eig_features_channels: the kernel's reference output
+              and no other launch), one config-4 histogram, one
               multiscale_features8_fused pass, one sweep_multi pass and one
               4-block sharded features8 pass at sigma 1.2 and 4.8
               (torch.profiler, 3 calls each).
@@ -184,7 +189,6 @@ or a search plus a scatter; `library` says which. The last line is
 """
 from __future__ import annotations
 
-import inspect
 import json
 import os
 import re
@@ -261,10 +265,15 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                              "benchmarks/probe_fused.py:59"),
     "features8_tap_copyfloor": ("ife_tpu_torch/csrc/features8_tap.cu",
                                 "ife_tpu/kernels/fused.py:638"),
+    # the Hessian kernel's reference output: the function of ife_tpu's
+    # hessian_eig_features, XLA ops there (no Pallas kernel)
+    "hessian_eig_reference": ("ife_tpu_torch/csrc/hessian_eig.cu",
+                              "ife_tpu/ops/features.py:357"),
 }
 # the kernels each main path must launch
 FEATURE_PATH = ("hessian_eig", "normalized_conv", "features8_post",
-                "features8_sweep", "features8_xs_stream", "smooth_yz")
+                "features8_sweep", "features8_xs_stream", "smooth_yz",
+                "hessian_eig_reference")
 BAG_PATH = ("histogram",)  # and the kernels of the branches at 0.6 / 2.4
 MULTISCALE_PATH = ("smooth_xz", "features8_ys_multi", "features8_sweep_multi",
                    "normalized_conv_tiled", "features8_post_windowed")
@@ -368,6 +377,11 @@ DEVICE_SLEEP_CYCLES = 4_000_000
 # csrc/features8_tail.cuh: 42 in the differences and the gradient
 # magnitude, ~110 in the eigen solve and its features
 TAIL_OPS = 150
+# the same for the Hessian kernel's reference output: TAIL_OPS less the
+# polynomial cos(arccos(r)/3) and its sine (~36), plus acosf and two cosf
+# (~60 in CUDA's forms, their range reduction included) and the diagonal
+# comparison tree (~15)
+REFERENCE_OPS = 190
 
 
 class PhaseError(RuntimeError):
@@ -955,6 +969,12 @@ def phase_kernels(errs):
                                   K.hessian_eig_plain(img, sp))
             errs["hessian_eig"].append(rel)
             line = [f"hessian_eig {rel:.2e}"]
+            rel, _ = kernel_check(
+                "hessian_eig_reference",
+                K.hessian_eig_reference_features(img, sp),
+                K.hessian_eig_reference_plain(img, sp))
+            errs["hessian_eig_reference"].append(rel)
+            line.append(f"hessian_eig_reference {rel:.2e}")
             for sigma in SIGMAS:
                 part = []
                 for name, kern, plain, inside in kernel_pairs(img, mask, sigma, sp):
@@ -1174,7 +1194,10 @@ def phase_main(tmp):
     from ife_tpu_torch.cli.main import main
     from ife_tpu_torch.core.volume import Volume
     from ife_tpu_torch.io import read_volume, write_volume
-    from ife_tpu_torch.kernels import LAUNCHES, hessian_eig_plain, reset_launches
+    from ife_tpu_torch.kernels import (
+        LAUNCHES, hessian_eig_plain, hessian_eig_reference_plain,
+        reset_launches,
+    )
     from ife_tpu_torch.ops.eigen import eigenvalue_features
     from ife_tpu_torch.ops.features import (
         FEATURE_NAMES, features8, features8_auto_channels,
@@ -1245,19 +1268,23 @@ def phase_main(tmp):
             branch_twin(img32, m, sigma, sp)))
     hess_names = ("Eigenvalue1", "Eigenvalue2", "Eigenvalue3",
                   "LaplacianOfGaussian", "GaussianCurvature", "FrobeniusNorm")
+    want64 = [c * inside for c in eigenvalue_features(
+        hessian(img32.double(), sp)).unbind(-1)]
     got = [read_volume(os.path.join(tmp, f"hess_{n}.nii.gz")).data.to(dev)
            for n in hess_names]
-    # without --fused the route is hessian_eig_features_channels: the same
-    # kernel, no channel-last stack; the files are the same
-    if not bit_equal(got, [read_volume(os.path.join(tmp, f"hessc_{n}.nii.gz")
-                                       ).data.to(dev) for n in hess_names]):
-        raise PhaseError("hessian-features: the files with and without "
-                         "--fused differ")
-    checks.append((
-        "hessian-features --fused", got, (0, 1, 2),
-        [c * inside for c in eigenvalue_features(
-            hessian(img32.double(), sp)).unbind(-1)],
-        [c * inside for c in hessian_eig_plain(img32, sp)]))
+    checks.append(("hessian-features --fused", got, (0, 1, 2), want64,
+                   [c * inside for c in hessian_eig_plain(img32, sp)]))
+    # without --fused the route is hessian_eig_features_channels, ife_tpu's
+    # hessian_eig_features: the kernel's reference output, held to its twin
+    # per channel (value-sorted triples would hide the order of tied
+    # eigenvalues, where the two eigen paths differ)
+    got = [read_volume(os.path.join(tmp, f"hessc_{n}.nii.gz")).data.to(dev)
+           for n in hess_names]
+    ref = [c * inside for c in hessian_eig_reference_plain(img32, sp)]
+    if not bit_equal(got, ref):
+        raise PhaseError("hessian-features: the files without --fused differ "
+                         "from hessian_eig_reference_plain per channel")
+    checks.append(("hessian-features", got, (0, 1, 2), want64, ref))
     for name, got, eig, want, twin in checks:
         for g in got:
             if tuple(g.shape) != shape or not bool(torch.isfinite(g).all()):
@@ -1800,7 +1827,24 @@ def phase_full(img, mask, errs, results):
     results["hessian_eig"] = dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms,
                                   max_abs_err=ab)
     say("full", f"hessian_eig 512^3 bit-equal to plain, rel {rel:.2e}; "
-        f"{nvox / (k_ms * 1e-3) / 1e9:.2f} Gvox/s kernel")
+        f"{nvox / (k_ms * 1e-3) / 1e9:.2f} Gvox/s kernel, "
+        f"{nvox / (k_dev * 1e-3) / 1e9:.2f} Gvox/s on device ms")
+    torch.cuda.empty_cache()
+    # the reference output (hessian_eig_features_channels' kernel), held to
+    # its twin per channel (bit_equal), its eigenvalues also as sorted
+    # triples in the printed error
+    k_ms, k_dev = timed_both("hessian_eig_reference kernel 512^3",
+                             lambda: K.hessian_eig_reference_features(img, sp))
+    p_ms = timed("hessian_eig_reference plain 512^3",
+                 lambda: K.hessian_eig_reference_plain(img, sp))
+    rel, ab = kernel_check("hessian_eig_reference 512^3",
+                           K.hessian_eig_reference_features(img, sp),
+                           K.hessian_eig_reference_plain(img, sp))
+    errs["hessian_eig_reference"].append(rel)
+    results["hessian_eig_reference"] = dict(ms=k_ms, device_ms=k_dev,
+                                            plain_ms=p_ms, max_abs_err=ab)
+    say("full", f"hessian_eig_reference 512^3 bit-equal to plain per "
+        f"channel, rel {rel:.2e}")
     torch.cuda.empty_cache()
 
     for sigma in SIGMAS:
@@ -2155,6 +2199,7 @@ def kernel_bounds(nvox, hist_work):
     nc_ops = (fir_ops(r["normalized_conv"], (0, 1, 2)) + 2) * nvox
     work = {
         "hessian_eig": (7 * vol, TAIL_OPS * nvox),
+        "hessian_eig_reference": (7 * vol, REFERENCE_OPS * nvox),
         "normalized_conv": (3 * vol, nc_ops),
         "features8_post": (10 * vol, TAIL_OPS * nvox),
         "features8_sweep": (10 * vol, (fir_ops(r["features8_sweep"], (0, 1, 2))
@@ -2692,14 +2737,20 @@ def phase_probes(img, mask, errs, results, library, modes=PROBE_MODES):
             say("probes", "LDG / LDGSTS per instantiation: " + "; ".join(
                 f"{k} {v['LDG']} / {v['LDGSTS']}"
                 for k, v in sorted(counts.items())))
-            feats = [v["LDG"] for k, v in counts.items()
-                     if "hessian_eig_kernelILi0ELi0E" in k]
-            floors = [v["LDG"] for k, v in counts.items()
-                      if "hessian_eig_kernelILi0ELi1E" in k
-                      or "hessian_eig_kernelILi0ELi2E" in k]
-            if len(feats) != 1 or len(floors) != 2 or set(floors) != set(feats):
-                raise PhaseError(f"the copy floors do not keep the Hessian's "
-                                 f"loads: {counts}")
+            # the copy floors (kCopyFloor, kCopy6: template outputs 1, 2)
+            # keep the features' (output 0) loads, LDG and LDGSTS alike, in
+            # each form of the rows (kWide: Lb1E 16-byte, Lb0E clamped)
+            for wide in ("Lb1E", "Lb0E"):
+                feats = [v for k, v in counts.items()
+                         if f"hessian_eig_kernelILi0ELi0E{wide}" in k]
+                floors = [v for k, v in counts.items()
+                          if f"hessian_eig_kernelILi0ELi1E{wide}" in k
+                          or f"hessian_eig_kernelILi0ELi2E{wide}" in k]
+                if (len(feats) != 1 or len(floors) != 2
+                        or feats[0]["LDG"] < 1
+                        or any(f != feats[0] for f in floors)):
+                    raise PhaseError(f"the copy floors do not keep the "
+                                     f"Hessian's loads: {counts}")
             # the tap's row loads are cp.async (LDGSTS); the features (ring
             # in shared memory) add the mask's loads of the emit (LDG), the
             # copy floor has none
@@ -2773,10 +2824,14 @@ def phase_profile(img, mask):
             say("profile", f"{label}: not measured (no device time recorded)")
             continue
         total = sum(ms for _, _, ms in rows)
+        # the route launches the Hessian kernel's reference instantiation
+        # (template output 4, kReference) and nothing beside it
         if label == "hessian_eig_features_channels" and (
-                len(rows) != 1 or "hessian_eig" not in rows[0][0]):
-            raise PhaseError(f"{label}: launches beside the hessian_eig "
-                             f"kernel: {rows}")
+                len(rows) != 1
+                or not re.search(r"hessian_eig_kernel(<0,\s*4,|ILi0ELi4E)",
+                                 rows[0][0])):
+            raise PhaseError(f"{label}: not the hessian_eig kernel's "
+                             f"reference output alone: {rows}")
         say("profile", f"{label}: device {total:.3f} ms per pass = "
             + "; ".join(f"{k} x{n} {ms:.3f}" for k, n, ms in
                         sorted(rows, key=lambda r: -r[2])))
@@ -2943,16 +2998,49 @@ def tap_xs_times(img, mask, sp):
     return res
 
 
-def sweep_times(label, groups=("sweep", "tap")):
+def hessian_times(img, sp):
+    """The Hessian kernel's part of --sweep-times (both_ms each): the whole
+    volume, x_halo with the volume's face rows as halo, pre_padded on its
+    edge layer, the copy floor, copy6, stencil6, the reference output where
+    the checkout has it, and trivial6 (one read, six writes) beside them."""
+    from ife_tpu_torch import kernels as K
+    from ife_tpu_torch.kernels import probes as P
+
+    halo = (img[:1].contiguous(), img[-1:].contiguous())
+    pad = edge_layer(img)
+    entries = [
+        ("hessian whole", lambda: K.fused_hessian_eig_stream(img, sp,
+                                                             stack=False)),
+        ("hessian x_halo", lambda: K.fused_hessian_eig_stream(
+            img, sp, stack=False, x_halo=halo)),
+        ("hessian pre_padded", lambda: K.fused_hessian_eig(
+            pad, sp, stack=False, pre_padded=True)),
+        ("hessian copyfloor", lambda: K.fused_hessian_eig(
+            img, sp, stack=False, variant="copyfloor")),
+        ("hessian copy6", lambda: P.variant(img, "copy6", sp)),
+        ("hessian stencil6", lambda: P.variant(img, "stencil6", sp)),
+        ("trivial6", lambda: P.trivial6(img)),
+    ]
+    # a checkout from before the reference output has none
+    if hasattr(K, "hessian_eig_reference_features"):
+        entries.insert(6, ("hessian reference",
+                           lambda: K.hessian_eig_reference_features(img, sp)))
+    res = {name: both_ms(fn) for name, fn in entries}
+    del pad
+    torch.cuda.empty_cache()
+    return res
+
+
+def sweep_times(label, groups=("sweep", "tap", "hessian")):
     """`--sweep-times [ROOT [GROUP...]]`: one JSON line of 512^3 times
     (both_ms: call ms and device ms, each median, min, max of 5) of the
     ife_tpu_torch package on sys.path. Group "sweep": the sweep at sigma
     0.6 / 1.2 / 1.7, with clamps and under a mask of ones, sweep_multi, the
     staged pair, xs_stream at x radius 11 / 14 / 17 / 20 / 24 (14 also under
     a mask of ones), ys_multi at S = 1 .. 4 (S = 2 also under a mask of
-    ones), hessian_eig (and its copy floor where the checkout has it); group
-    "tap": the direct entries (tap_xs_times). Run it on two checkouts in
-    turns to compare them within one call on one card."""
+    ones); group "tap": the direct entries (tap_xs_times); group "hessian":
+    the Hessian kernel in every mode and output (hessian_times). Run it on
+    two checkouts in turns to compare them within one call on one card."""
     from ife_tpu_torch import kernels as K
 
     if not torch.cuda.is_available():
@@ -2964,6 +3052,8 @@ def sweep_times(label, groups=("sweep", "tap")):
     res = {"label": label, "card": card_line()}
     if "tap" in groups:
         res.update(tap_xs_times(img, mask, sp))
+    if "hessian" in groups:
+        res.update(hessian_times(img, sp))
     if "sweep" not in groups:
         print(json.dumps(res), flush=True)
         return
@@ -2998,12 +3088,6 @@ def sweep_times(label, groups=("sweep", "tap")):
             del kern
     del ones
     torch.cuda.empty_cache()
-    res["hessian_eig"] = both_ms(
-        lambda: K.fused_hessian_eig_stream(img, sp, stack=False))
-    # a checkout from before the probes has no variant
-    if "variant" in inspect.signature(K.fused_hessian_eig).parameters:
-        res["hessian_eig copyfloor"] = both_ms(lambda: K.fused_hessian_eig(
-            img, sp, stack=False, variant="copyfloor"))
     print(json.dumps(res), flush=True)
 
 
@@ -3015,11 +3099,12 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--sweep-times"]:
         other = os.path.abspath(sys.argv[2]) if len(sys.argv) > 2 else root
-        groups = tuple(sys.argv[3:]) or ("sweep", "tap")
+        groups = tuple(sys.argv[3:]) or ("sweep", "tap", "hessian")
         sys.path.insert(0, other)
         try:
-            if not set(groups) <= {"sweep", "tap"}:
-                raise PhaseError(f"unknown groups {groups}: sweep, tap")
+            if not set(groups) <= {"sweep", "tap", "hessian"}:
+                raise PhaseError(f"unknown groups {groups}: sweep, tap, "
+                                 "hessian")
             sweep_times(other, groups)
         except PhaseError as e:
             print(f"chip_smoke: --sweep-times failed: {e}", file=sys.stderr)

@@ -204,8 +204,11 @@ def conf_hessian_features(p):
     p.add_argument("-m", "--mask", default=None)
     p.add_argument("-o", "--out", required=True, help="output prefix")
     p.add_argument("--fused", action="store_true",
-                   help="call the fused kernel entry point (on CUDA both "
-                   "forms run the hessian_eig kernel)")
+                   help="write the fused kernel's function (the polynomial "
+                   "eigen path, as ife_tpu's --fused) instead of "
+                   "hessian_eig_features' (the reference's trig path with "
+                   "its diagonal branch); on CUDA both run the hessian_eig "
+                   "kernel")
 
 
 def run_hessian_features(args):

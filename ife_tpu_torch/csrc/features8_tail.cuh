@@ -8,7 +8,9 @@
 // _emit_features8, docs/design.md "true-face clamp"). It is the CUDA
 // counterpart of fused.py:_emit_features8 / _stream_kernel, with the
 // eigen solve of ife_tpu/ops/eigen.py on the polynomial, no-diagonal path
-// (use_trig=False, diag_path=False), in float32.
+// (use_trig=False, diag_path=False), in float32; beside it the reference's
+// trig path with its diagonal branch (eigen_features_reference), which the
+// Hessian kernel's reference output computes.
 //
 // Boundaries: the caller fills v[a][b][c] with s at the CLAMPED index
 // (min(max(x+a-1, 0), X-1), ...) of the exact, unpadded volume, so at a true
@@ -124,57 +126,116 @@ __device__ __forceinline__ float clip_unit(float r) {
     return r < -1.0f ? -1.0f : (r > 1.0f ? 1.0f : r);
 }
 
-// Eigen features of the symmetric matrix [a11 a12 a13; . a22 a23; . . a33]:
-// f = {e1, e2, e3 (|e3| <= |e2| <= |e1|), e1+e2+e3, e1*e2*e3, frobenius}.
-// ife_tpu/ops/eigen.py eigenvalue_feature_channels(use_trig=False,
-// diag_path=False), line for line.
-__device__ __forceinline__ void eigen_features(
-    float a11, float a12, float a13, float a22, float a23, float a33,
-    float (&f)[6]) {
-    const float p1 = a12 * a12 + a13 * a13 + a23 * a23;
-    const float q = (a11 + a22 + a33) * (float)(1.0 / 3.0);
-    const float d11 = a11 - q, d22 = a22 - q, d33 = a33 - q;
-    const float p2 = d11 * d11 + d22 * d22 + d33 * d33 + 2.0f * p1;
-    const float p2safe = (p2 > 0.0f ? p2 : 1.0f) * (float)(1.0 / 6.0);
+// The part of the closed-form solve both eigen paths share
+// (ife_tpu_torch/ops/eigen.py eigenvalues_from_channels, up to rc): p1 (the
+// off-diagonal energy), q = tr/3, p2, p = sqrt(p2/6) and the clipped
+// r = det(A - qI) / (2 p^3).
+struct EigenSetup {
+    float p1, q, p2, p, rc;
+};
+
+__device__ __forceinline__ EigenSetup eigen_setup(
+    float a11, float a12, float a13, float a22, float a23, float a33) {
+    EigenSetup e;
+    e.p1 = a12 * a12 + a13 * a13 + a23 * a23;
+    e.q = (a11 + a22 + a33) * (float)(1.0 / 3.0);
+    const float d11 = a11 - e.q, d22 = a22 - e.q, d33 = a33 - e.q;
+    e.p2 = d11 * d11 + d22 * d22 + d33 * d33 + 2.0f * e.p1;
+    const float p2safe = (e.p2 > 0.0f ? e.p2 : 1.0f) * (float)(1.0 / 6.0);
     const float pinv = rsqrtf(p2safe);
-    const float p = p2safe * pinv;  // sqrt(p2/6)
+    e.p = p2safe * pinv;  // sqrt(p2/6)
     const float det = d11 * (d22 * d33 - a23 * a23)
         + a12 * (a23 * a13 - a12 * d33)
         + a13 * (a12 * a23 - a13 * d22);
-    const float rc = clip_unit(det * (pinv * pinv * pinv) * 0.5f);
+    e.rc = clip_unit(det * (pinv * pinv * pinv) * 0.5f);
+    return e;
+}
 
-    // arccos(r) = pi - arccos(|r|) for r < 0, by the angle-difference
-    // identities; cos(phi + 2pi/3) = -c/2 - (sqrt3/2) s
-    const float s32 = (float)0.8660254037844386;  // sqrt(3)/2
-    const float cm = cos_third_arccos(fabsf(rc));
-    const float sm = sqrtf(fmaxf(1.0f - cm * cm, 0.0f));
-    const bool pos = rc >= 0.0f;
-    const float cphi = pos ? cm : 0.5f * cm + s32 * sm;
-    const float sphi = pos ? sm : s32 * cm - 0.5f * sm;
-    const float cphi2 = -0.5f * cphi - s32 * sphi;
-    const float g0 = q + 2.0f * p * cphi;
-    const float g2 = q + 2.0f * p * cphi2;
-    const float g1 = 3.0f * q - g0 - g2;  // trace identity
-
-    // reorder to |e3| <= |e2| <= |e1| with the reference's two swaps
+// g0 = q + 2p cos(phi), g2 = q + 2p cos(phi + 2pi/3), g1 by the trace
+// identity, reordered to |t2| <= |t1| <= |t0| with the reference's two swaps
+__device__ __forceinline__ void eigen_reorder(
+    const EigenSetup& e, float cphi, float cphi2, float& t0, float& t1,
+    float& t2) {
+    const float g0 = e.q + 2.0f * e.p * cphi;
+    const float g2 = e.q + 2.0f * e.p * cphi2;
+    const float g1 = 3.0f * e.q - g0 - g2;  // trace identity
     const bool s1 = fabsf(g0) < fabsf(g2);
-    const float t0 = s1 ? g2 : g0;
-    float t2 = s1 ? g0 : g2;
+    t0 = s1 ? g2 : g0;
+    t2 = s1 ? g0 : g2;
     const bool sw = fabsf(g1) < fabsf(t2);
-    const float t1 = sw ? t2 : g1;
+    t1 = sw ? t2 : g1;
     t2 = sw ? g1 : t2;
+}
 
-    // scalar-matrix guard: p2 == 0 means all eigenvalues are q
-    const bool scalar = p2 == 0.0f;
-    const float e0 = scalar ? q : t0;
-    const float e1 = scalar ? q : t1;
-    const float e2 = scalar ? q : t2;
+// f = {e0, e1, e2, e0+e1+e2, e0*e1*e2, frobenius}
+// (EigenvalueFeaturesFunctor.h:20-31)
+__device__ __forceinline__ void eigen_feature_values(
+    float e0, float e1, float e2, float (&f)[6]) {
     f[0] = e0;
     f[1] = e1;
     f[2] = e2;
     f[3] = e0 + e1 + e2;
     f[4] = e0 * e1 * e2;
     f[5] = sqrtf(e0 * e0 + e1 * e1 + e2 * e2);
+}
+
+// Eigen features of the symmetric matrix [a11 a12 a13; . a22 a23; . . a33]:
+// f = {e1, e2, e3 (|e3| <= |e2| <= |e1|), e1+e2+e3, e1*e2*e3, frobenius}.
+// ife_tpu/ops/eigen.py eigenvalue_feature_channels(use_trig=False,
+// diag_path=False), line for line: the function of the Pallas kernels.
+__device__ __forceinline__ void eigen_features(
+    float a11, float a12, float a13, float a22, float a23, float a33,
+    float (&f)[6]) {
+    const EigenSetup e = eigen_setup(a11, a12, a13, a22, a23, a33);
+    // arccos(r) = pi - arccos(|r|) for r < 0, by the angle-difference
+    // identities; cos(phi + 2pi/3) = -c/2 - (sqrt3/2) s
+    const float s32 = (float)0.8660254037844386;  // sqrt(3)/2
+    const float cm = cos_third_arccos(fabsf(e.rc));
+    const float sm = sqrtf(fmaxf(1.0f - cm * cm, 0.0f));
+    const bool pos = e.rc >= 0.0f;
+    const float cphi = pos ? cm : 0.5f * cm + s32 * sm;
+    const float sphi = pos ? sm : s32 * cm - 0.5f * sm;
+    const float cphi2 = -0.5f * cphi - s32 * sphi;
+    float t0, t1, t2;
+    eigen_reorder(e, cphi, cphi2, t0, t1, t2);
+    // scalar-matrix guard: p2 == 0 means all eigenvalues are q
+    const bool scalar = e.p2 == 0.0f;
+    eigen_feature_values(scalar ? e.q : t0, scalar ? e.q : t1,
+                         scalar ? e.q : t2, f);
+}
+
+// The same features on the reference's path: eigenvalue_feature_channels
+// with its defaults (use_trig=True, diag_path=True), line for line — the
+// function of ife_tpu.ops.features.hessian_eig_features on every platform.
+// phi = acos(r)/3 and the two cosines by CUDA's acosf / cosf (written with
+// explicit fmaf, so --fmad does not reach them), and where the matrix is
+// diagonal (p1 == 0) its diagonal ordered by |.| with the reference's
+// strict-'>' comparison tree (Symmetric3x3EigenvalueSolver.h:45-83;
+// ops/eigen.py _ordered_by_abs_desc_diag).
+__device__ __forceinline__ void eigen_features_reference(
+    float a11, float a12, float a13, float a22, float a23, float a33,
+    float (&f)[6]) {
+    const EigenSetup e = eigen_setup(a11, a12, a13, a22, a23, a33);
+    // pi rounded to f32, then the product, as the twin's pi * (2/3)
+    const float third_turn = (float)3.141592653589793 * (float)(2.0 / 3.0);
+    const float phi = acosf(e.rc) * (float)(1.0 / 3.0);
+    const float cphi = cosf(phi);
+    const float cphi2 = cosf(phi + third_turn);
+    float t0, t1, t2;
+    eigen_reorder(e, cphi, cphi2, t0, t1, t2);
+
+    const bool c1 = fabsf(a11) > fabsf(a22);
+    const bool c2 = fabsf(a11) > fabsf(a33);
+    const bool c3 = fabsf(a22) > fabsf(a33);
+    // the four branches of the tree: (a11, ...), (a33, a11, a22),
+    // (a22, ...), (a33, a22, a11)
+    const float d0 = c1 ? (c2 ? a11 : a33) : (c3 ? a22 : a33);
+    const float d1 = c1 ? (c2 ? (c3 ? a22 : a33) : a11)
+                        : (c3 ? (c2 ? a11 : a33) : a22);
+    const float d2 = c1 ? (c2 ? (c3 ? a33 : a22) : a22)
+                        : (c3 ? (c2 ? a33 : a11) : a11);
+    const bool diag = e.p1 == 0.0f;
+    eigen_feature_values(diag ? d0 : t0, diag ? d1 : t1, diag ? d2 : t2, f);
 }
 
 // The stencil of the tail: h = {Dxx, Dxy, Dxz, Dyy, Dyz, Dzz} (the packed

@@ -6,6 +6,8 @@ PyTorch twin, in the same module, for a CPU tensor; ``LAUNCHES`` counts the
 kernel launches per kernel. Counterparts of ife_tpu/kernels/fused.py:
 
   fused_hessian_eig_stream, fused_hessian_eig -> csrc/hessian_eig.cu
+  (and hessian_eig_reference_features, the same kernel on the reference's
+  eigen path: ife_tpu.ops.features.hessian_eig_features)
   fused_normalized_conv_sweep,
   fused_normalized_conv_sweep_tiled           -> csrc/normalized_conv.cu
   fused_features8_post_stream,
@@ -84,6 +86,9 @@ from ife_tpu_torch.kernels.hessian_eig import (  # noqa: F401
     fused_hessian_eig_stream,
     hessian_eig_copyfloor_plain,
     hessian_eig_plain,
+    hessian_eig_reference_features,
+    hessian_eig_reference_plain,
+    hessian_plan,
 )
 from ife_tpu_torch.kernels.normalized_conv import (  # noqa: F401
     fused_normalized_conv_sweep,

@@ -44,8 +44,8 @@ NVCC_FLAGS = (
 # they launch: "normalized_conv_tiled" counts the launches of
 # ife_normalized_conv that fused_normalized_conv_sweep_tiled makes, one per
 # slab; the others count the shard modes (clamps, x_halo, pre_padded) and
-# the probe outputs (copyfloor, copy6, stencil6) of an entry apart from its
-# whole-volume features.
+# the other outputs (the probes' copyfloor, copy6, stencil6; the Hessian's
+# reference eigen path) of an entry apart from its whole-volume features.
 COUNTED_AS = {
     "normalized_conv_tiled": "normalized_conv",
     "features8_sweep_clamps": "features8_sweep",
@@ -58,6 +58,7 @@ COUNTED_AS = {
     "hessian_eig_copyfloor": "hessian_eig",
     "hessian_eig_copy6": "hessian_eig",
     "hessian_eig_stencil6": "hessian_eig",
+    "hessian_eig_reference": "hessian_eig",
     "features8_tap_copyfloor": "features8_tap",
 }
 

@@ -1,16 +1,20 @@
 """Hessian + eigen features of the unsmoothed volume: the CUDA kernel
-``csrc/hessian_eig.cu`` and its plain PyTorch twin.
+``csrc/hessian_eig.cu`` and its plain PyTorch twins.
 
 Replaces ife_tpu/kernels/fused.py:fused_hessian_eig_stream (and
 fused_hessian_eig, the same math through TPU DMA windows — here one kernel
 under both names), with their shard modes x_halo and pre_padded. Bound by
 bytes on the H100 (1 read + 6 writes of f32 per voxel); see the source for
-the design. The kernel's probe outputs (``HESSIAN_OUTPUTS``: the copy floor
-of fused_hessian_eig's variant="copyfloor", and probe_fused's copy6 and
-stencil6, kernels/probes.py) are counted apart in LAUNCHES.
+the design, and ``hessian_plan`` for its launch. The kernel's other outputs
+(``HESSIAN_OUTPUTS``) are counted apart in LAUNCHES: the reference's eigen
+path (``hessian_eig_reference_features``, the function of
+ife_tpu.ops.features.hessian_eig_features), the copy floor of
+fused_hessian_eig's variant="copyfloor", and probe_fused's copy6 and
+stencil6 (kernels/probes.py).
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Sequence
 
 import torch
@@ -79,8 +83,63 @@ def hessian_eig_plain(x: torch.Tensor,
     return with_shard_halo(plain, x, x_halo, pre_padded)
 
 
+def hessian_eig_reference_plain(x: torch.Tensor,
+                                spacing: Sequence[float] = (1.0, 1.0, 1.0)):
+    """The reference output's plain twin: the six eigen features of the
+    central-difference Hessian on the reference's path (trig, with the exact
+    diagonal branch: eigenvalue_feature_channels' defaults), the function of
+    ife_tpu.ops.features.hessian_eig_features. Tuple of six tensors."""
+    return eigenvalue_feature_channels(*hessian(x, spacing).unbind(-1))
+
+
 # csrc/hessian_eig.cu HessianOutput: what the kernel writes per voxel
-HESSIAN_OUTPUTS = {"features": 0, "copyfloor": 1, "copy6": 2, "stencil6": 3}
+HESSIAN_OUTPUTS = {"features": 0, "copyfloor": 1, "copy6": 2, "stencil6": 3,
+                   "reference": 4}
+# csrc/hessian_eig.cu's block: a thread owns a run of `run` voxels along z,
+# a warp one row of 32 runs, a block `tile_y` rows of one x plane
+HESSIAN_TILE = {"run": 4, "tile_z": 128, "tile_y": 8, "threads": 256}
+
+
+@dataclass(frozen=True)
+class HessianPlan:
+    """A launch of csrc/hessian_eig.cu on an (X, Y, Z) core: grid (z tiles,
+    y tiles, X) of `threads` threads (no shared memory). Block (bz, by, bx)
+    writes plane x = bx, rows [by tile_y, +tile_y) and columns
+    [bz tile_z, +tile_z), each clipped to the core; a thread the run of
+    `run` voxels at z = bz tile_z + run lane of row by tile_y + warp."""
+    grid: tuple
+    threads: int
+    run: int
+    tile_y: int
+    tile_z: int
+
+
+def hessian_plan(X: int, Y: int, Z: int) -> HessianPlan:
+    """The Hessian kernel's launch on an (X, Y, Z) core, the same in every
+    mode and output (a shard mode changes where a row is read, not which
+    voxels a block writes): the grid its launcher computes
+    (launch_hessian)."""
+    t = HESSIAN_TILE
+    return HessianPlan((-(-Z // t["tile_z"]), -(-Y // t["tile_y"]), X),
+                       t["threads"], t["run"], t["tile_y"], t["tile_z"])
+
+
+def _launch(name: str, x: torch.Tensor, lo, hi, core, mode: int, output: str,
+            spacing, count_as):
+    """Launch csrc/hessian_eig.cu on x (checked by the caller) for the core
+    shape `core`; the (6, X, Y, Z) output."""
+    X, Y, Z = core
+    if (Y + 2) * Z >= 2**31:
+        raise ValueError(f"{name}: a plane of {Y} x {Z} voxels (its layer "
+                         "included) must hold < 2^31 of them: the kernel "
+                         "offsets within a plane in 32 bits")
+    out = torch.empty((6, X, Y, Z), dtype=x.dtype, device=x.device)
+    launch("hessian_eig", x.device, x.data_ptr(),
+           None if lo is None else lo.data_ptr(),
+           None if hi is None else hi.data_ptr(), out.data_ptr(), X, Y, Z,
+           mode, HESSIAN_OUTPUTS[output], *stencil_reciprocals(spacing),
+           count_as=count_as)
+    return out
 
 
 def hessian_eig_copyfloor_plain(x: torch.Tensor):
@@ -92,15 +151,28 @@ def hessian_eig_copyfloor_plain(x: torch.Tensor):
 def hessian_output_kernel(name: str, x: torch.Tensor, output: str,
                           spacing: Sequence[float] = (1.0, 1.0, 1.0)):
     """Launch the Hessian kernel on the whole volume x (a CUDA tensor) with
-    the probe output `output` of HESSIAN_OUTPUTS; a (6, X, Y, Z) tensor.
-    Counted in LAUNCHES as hessian_eig_<output>."""
+    the output `output` of HESSIAN_OUTPUTS other than the features; a
+    (6, X, Y, Z) tensor. Counted in LAUNCHES as hessian_eig_<output>."""
     check_cuda_volume(name, x)
-    X, Y, Z = x.shape
-    out = torch.empty((6, X, Y, Z), dtype=x.dtype, device=x.device)
-    launch("hessian_eig", x.device, x.data_ptr(), None, None, out.data_ptr(),
-           X, Y, Z, 0, HESSIAN_OUTPUTS[output], *stencil_reciprocals(spacing),
-           count_as=f"hessian_eig_{output}")
-    return out
+    return _launch(name, x, None, None, x.shape, 0, output, spacing,
+                   f"hessian_eig_{output}")
+
+
+def hessian_eig_reference_features(x: torch.Tensor,
+                                   spacing: Sequence[float] = (1.0, 1.0, 1.0)):
+    """[e1, e2, e3, LoG, GaussianCurvature, FrobeniusNorm] of the Hessian of
+    x on the reference's eigen path (hessian_eig_reference_plain): the
+    function of ife_tpu.ops.features.hessian_eig_features, where
+    fused_hessian_eig_stream computes the Pallas kernel's polynomial path
+    without the diagonal branch (the two order tied eigenvalues
+    differently). Whole volume; a tuple of six (X, Y, Z) tensors.
+
+    A CUDA tensor (contiguous float32) launches the kernel's reference
+    output, counted as hessian_eig_reference; a CPU tensor runs the twin."""
+    name = "hessian_eig_reference_features"
+    if use_plain_twin(name, x):
+        return hessian_eig_reference_plain(x, spacing)
+    return tuple(hessian_output_kernel(name, x, "reference", spacing).unbind(0))
 
 
 def fused_hessian_eig_stream(x: torch.Tensor,
@@ -136,12 +208,8 @@ def fused_hessian_eig_stream(x: torch.Tensor,
         if min(X, Y) < 1:
             raise ValueError(f"{name}: pre_padded needs a core of >= 1 voxel, "
                              f"got a block of {tuple(x.shape)}")
-    out = torch.empty((6, X, Y, Z), dtype=x.dtype, device=x.device)
-    launch("hessian_eig", x.device, x.data_ptr(),
-           None if lo is None else lo.data_ptr(),
-           None if hi is None else hi.data_ptr(), out.data_ptr(), X, Y, Z,
-           mode, HESSIAN_OUTPUTS["features"], *stencil_reciprocals(spacing),
-           count_as=(None, "hessian_eig_x_halo", "hessian_eig_pre_padded")[mode])
+    out = _launch(name, x, lo, hi, (X, Y, Z), mode, "features", spacing,
+                  (None, "hessian_eig_x_halo", "hessian_eig_pre_padded")[mode])
     return out if stack else tuple(out.unbind(0))
 
 

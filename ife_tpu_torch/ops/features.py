@@ -42,7 +42,7 @@ from ife_tpu_torch.kernels.features8_sweep import (
     xs_stream_fits,
 )
 from ife_tpu_torch.kernels.features8_ys_multi import fused_features8_ys_multi
-from ife_tpu_torch.kernels.hessian_eig import fused_hessian_eig_stream
+from ife_tpu_torch.kernels.hessian_eig import hessian_eig_reference_features
 from ife_tpu_torch.kernels.normalized_conv import (
     fused_normalized_conv_sweep, fused_smooth_xz, fused_smooth_yz,
 )
@@ -261,16 +261,16 @@ def hessian_eig_features_channels(
 ):
     """Unsmoothed Hessian -> 6 eigen features as a TUPLE of 6 (X, Y, Z)
     tensors, without a channel-last stack (at 512^3 that stack costs 16x the
-    kernel). The benchmark hot path ('Hessian+eig voxels/sec'): on a CUDA
-    tensor the hessian_eig kernel, whose eigen solve is the polynomial path;
-    on a CPU tensor the plain ops, eigenvalue_features(hessian(...)), the
-    trig path with the reference's diagonal branch, as
-    ife_tpu.ops.features.hessian_eig_features on every platform. Near
-    repeated eigenvalues the two paths differ by up to ~1e-4 of the
-    eigenvalue scale in f32 (the sqrt(ulp) floor of a closed-form solve);
-    elsewhere they agree to rounding."""
+    kernel): ife_tpu.ops.features.hessian_eig_features, the trig eigen path
+    with the reference's diagonal branch, on every device. On a CUDA tensor
+    the Hessian kernel's reference output (hessian_eig_reference_features);
+    on a CPU tensor the plain ops, eigenvalue_features(hessian(...)).
+    fused_hessian_eig_stream is the Pallas kernel's function instead (the
+    polynomial path, no diagonal branch), which orders tied eigenvalues
+    differently: on i^2 - j^2 it gives (2, -2, 0) where this gives
+    (-2, 2, 0)."""
     if image.is_cuda:
-        return fused_hessian_eig_stream(image, tuple(spacing), stack=False)
+        return hessian_eig_reference_features(image, tuple(spacing))
     return eigenvalue_features(hessian(image, spacing)).unbind(-1)
 
 
@@ -278,7 +278,7 @@ def hessian_eig_features(
     image: torch.Tensor, spacing: Sequence[float] = (1.0, 1.0, 1.0)
 ) -> torch.Tensor:
     """hessian_eig_features_channels stacked channel-last: (X, Y, Z, 6), the
-    layout of ife_tpu's hessian_eig_features (the same eigen paths)."""
+    layout of ife_tpu's hessian_eig_features (the same function)."""
     if image.is_cuda:
         return torch.stack(hessian_eig_features_channels(image, spacing),
                            dim=-1)

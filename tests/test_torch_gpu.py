@@ -56,13 +56,38 @@ def _feature_err(got, ref, eig):
     return max(errs)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+# the Hessian kernel's edges (csrc/hessian_eig.cu: (y, z) tiles of 8 x 128
+# marching chunks of x, kernels.hessian_plan): one voxel over a tile on y and
+# on z, rows of 16-byte pieces (Z % 4 == 0) with a ragged last tile and
+# without, x chunks of many planes (33 and 64 planes over 66 and 99 tiles)
+HESSIAN_EDGE_SHAPES = [(9, 9, 129), (33, 257, 132), (64, 257, 260), (2, 1, 4),
+                       (17, 8, 128)]
+
+
+def _halo_and_layer(img):
+    """Random x_halo rows for img and img inside a random one-voxel layer
+    on x and y: neighbour rows that are no face of img."""
+    g = torch.Generator(device=img.device).manual_seed(4)
+    X, Y, Z = img.shape
+    lo, hi = (torch.randn((1, Y, Z), generator=g, device=img.device) * 300.0
+              for _ in range(2))
+    pad = torch.randn((X + 2, Y + 2, Z), generator=g, device=img.device) * 300.0
+    pad[1:-1, 1:-1] = img
+    return (lo, hi), pad
+
+
+@pytest.mark.parametrize("shape", SHAPES + HESSIAN_EDGE_SHAPES)
 def test_hessian_eig_kernel_matches_plain(cuda, shape):
     img, _ = _inputs(shape, cuda)
     got = K.fused_hessian_eig_stream(img, SPACING, stack=False)
     want = K.hessian_eig_plain(img, SPACING)
     assert _feature_err(got, want, (0, 1, 2)) < TOL
     assert all(_same(g, w) for g, w in zip(got, want))
+    halo, pad = _halo_and_layer(img)
+    for kw, x in ((dict(x_halo=halo), img), (dict(pre_padded=True), pad)):
+        got = K.fused_hessian_eig_stream(x, SPACING, stack=False, **kw)
+        want = K.hessian_eig_plain(x, SPACING, **kw)
+        assert all(_same(g, w) for g, w in zip(got, want)), kw
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -774,7 +799,7 @@ def test_scaled_copy_probes_equal_their_twins(cuda, shape, width):
     assert K.LAUNCHES["pcopy1"] - before["pcopy1"] == 1
 
 
-@pytest.mark.parametrize("shape", PROBE_SHAPES)
+@pytest.mark.parametrize("shape", PROBE_SHAPES + HESSIAN_EDGE_SHAPES)
 @pytest.mark.parametrize("mode", ["copyfloor", "copy6", "stencil6"])
 def test_hessian_probe_outputs_equal_their_twins(cuda, shape, mode):
     from ife_tpu_torch.kernels import probes as P
@@ -794,6 +819,66 @@ def test_hessian_probe_outputs_equal_their_twins(cuda, shape, mode):
     name = f"hessian_eig_{mode}"
     assert {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES} == {
         k: launches if k == name else 0 for k in K.LAUNCHES}
+
+
+HESSIAN_CALLS = {
+    "features": (lambda x, h, p: K.fused_hessian_eig_stream(x, SPACING),
+                 lambda x, h, p: K.hessian_eig_plain(x, SPACING)),
+    "x_halo": (lambda x, h, p: K.fused_hessian_eig_stream(x, SPACING, x_halo=h),
+               lambda x, h, p: K.hessian_eig_plain(x, SPACING, x_halo=h)),
+    "pre_padded": (
+        lambda x, h, p: K.fused_hessian_eig(p, SPACING, pre_padded=True),
+        lambda x, h, p: K.hessian_eig_plain(p, SPACING, pre_padded=True)),
+    "copyfloor": (
+        lambda x, h, p: K.fused_hessian_eig(x, SPACING, variant="copyfloor"),
+        lambda x, h, p: K.hessian_eig_copyfloor_plain(x)),
+    "reference": (
+        lambda x, h, p: K.hessian_eig_reference_features(x, SPACING),
+        lambda x, h, p: K.hessian_eig_reference_plain(x, SPACING)),
+}
+
+
+@pytest.mark.parametrize("shape", SHAPES + THIN + PROBE_SHAPES
+                         + HESSIAN_EDGE_SHAPES + [(1, 5, 9), (1, 1, 1)])
+@pytest.mark.parametrize("call", sorted(HESSIAN_CALLS))
+def test_hessian_kernel_in_every_mode_and_output_equals_its_twin(cuda, shape,
+                                                                 call):
+    # x_halo with X = 1 (both neighbour rows from lo / hi) and pre_padded on
+    # a 1 x 1 core among them; signed zeros in the input
+    x = _with_signed_zeros(_inputs(shape, cuda)[0])
+    halo, pad = _halo_and_layer(x)
+    kern, twin = HESSIAN_CALLS[call]
+    assert _bits(_stacked(kern(x, halo, pad)), _stacked(twin(x, halo, pad)))
+
+
+def _tie_volumes(dev):
+    """i^2 - j^2 (Hessian diag(2, -2, 0): |e1| = |e2| at every voxel) and
+    random small integers (diagonal and tied Hessians), f32."""
+    i, j, _ = torch.meshgrid(*(torch.arange(n, dtype=torch.float32)
+                               for n in (12, 11, 10)), indexing="ij")
+    g = torch.Generator().manual_seed(11)
+    ints = torch.randint(-3, 4, (19, 17, 24), generator=g).float()
+    return (i * i - j * j).to(dev), ints.to(dev)
+
+
+def test_hessian_features_route_gives_the_reference_at_ties(cuda):
+    # hessian_eig_features_channels (the hessian-features CLI without
+    # --fused) is ife_tpu's hessian_eig_features: the reference's eigen path,
+    # which orders tied eigenvalues by its diagonal branch; the Pallas
+    # kernel's polynomial path (fused_hessian_eig_stream) swaps e1 and e2
+    from ife_tpu_torch.ops.features import hessian_eig_features_channels
+
+    square, ints = _tie_volumes(cuda)
+    for vol in (square, ints):
+        before = dict(K.LAUNCHES)
+        got = hessian_eig_features_channels(vol, (1.0, 1.0, 1.0))
+        assert {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES} == {
+            k: int(k == "hessian_eig_reference") for k in K.LAUNCHES}
+        assert _bits(got, K.hessian_eig_reference_plain(vol))
+    got = hessian_eig_features_channels(square)
+    assert [float(c[5, 5, 5]) for c in got[:3]] == [-2.0, 2.0, 0.0]
+    poly = K.fused_hessian_eig_stream(square, stack=False)
+    assert float(poly[0][5, 5, 5]) > 0 > float(poly[1][5, 5, 5])
 
 
 @pytest.mark.parametrize("shape", TAP_XS_SHAPES + [(128, 124, 120)])
@@ -861,6 +946,14 @@ def test_shard_modes_equal_their_twins(cuda, shape):
                  _stacked(K.hessian_eig_plain(ic, SPACING, x_halo=ih)))
     assert _same(K.fused_hessian_eig(img, SPACING, pre_padded=True),
                  K.fused_hessian_eig(img, SPACING)[:, 1:-1, 1:-1])
+    # x_halo on one plane (rows -1 and 1 both from the halo), pre_padded on a
+    # 1 x 1 core (every neighbour row from the layer)
+    one = img[1:2].contiguous()
+    assert _same(K.fused_hessian_eig_stream(one, SPACING, x_halo=ih),
+                 _stacked(K.hessian_eig_plain(one, SPACING, x_halo=ih)))
+    block = img[:3, :3].contiguous()
+    assert _same(K.fused_hessian_eig(block, SPACING, pre_padded=True),
+                 _stacked(K.hessian_eig_plain(block, SPACING, pre_padded=True)))
     for name in ("features8_sweep_clamps", "features8_sweep_multi_clamps",
                  "features8_post_x_halo", "features8_post_pre_padded",
                  "features8_post_windowed_pre_padded", "hessian_eig_x_halo",

@@ -239,10 +239,12 @@ def test_build_is_keyed_by_the_sources():
                                     "hessian_eig_copyfloor",
                                     "hessian_eig_copy6",
                                     "hessian_eig_stencil6",
+                                    "hessian_eig_reference",
                                     "features8_tap_copyfloor"}
     # every C entry the wrappers launch has a declared signature; the tiled
-    # normalized convolution, the shard modes and the probe outputs count
-    # launches of another name's entry (COUNTED_AS)
+    # normalized convolution, the shard modes, the probe outputs and the
+    # Hessian's reference output count launches of another name's entry
+    # (COUNTED_AS)
     assert {f"ife_{k}" for k in _build.LAUNCHES
             if k not in _build.COUNTED_AS} == set(_build._SIGNATURES)
     assert {f"ife_{k}" for k in _build.COUNTED_AS.values()} <= set(
