@@ -5,9 +5,10 @@
     python3 chip_smoke.py --ranks 4     # the sharded path, one rank per card
     python3 chip_smoke.py --sweep-times [ROOT [GROUP...]]  # the sweep
                                         # family's (GROUP sweep), the
-                                        # direct entries' (GROUP tap) and
-                                        # the Hessian kernel's (GROUP
-                                        # hessian) 512^3 times of the
+                                        # direct entries' (GROUP tap), the
+                                        # Hessian kernel's (GROUP hessian)
+                                        # and the normalized convolution's
+                                        # (GROUP nc) 512^3 times of the
                                         # checkout under ROOT
     python3 chip_smoke.py --hist-times [ROOT]    # the histogram's 512^3
                                         # shapes, call ms and device ms, of
@@ -16,6 +17,9 @@
                                         # features8 branches alone
     python3 chip_smoke.py --probes [mode...]  # the probe phase alone (modes:
                                         # PROBE_MODES; default all)
+    python3 chip_smoke.py --profile     # phase 6 alone (the default run
+                                        # runs it so, in a process of its
+                                        # own)
 
 Run from the root of a checkout; needs one CUDA device of compute
 capability 9.0, nvcc and nvidia-smi (`--ranks N`: N of them on one host, and
@@ -69,7 +73,14 @@ failing phase exits non-zero:
               20, 29, on shapes thin, prime and one voxel over the kernels'
               tiles and the tap's row chunk on each axis, under an empty, a
               one-octant, a full, the sphere and a clamped sphere mask (the
-              tap skips rows, xs blocks, with no voxel inside);
+              tap skips rows, xs blocks, with no voxel inside); the
+              normalized-convolution kernels (nc_radius_checks: nc,
+              smooth_yz, smooth_xz and the tiled entry at 1 - 3 slabs at
+              every radius 1 .. 128 on each axis, anisotropic radii and
+              sigma 0, Z of 1 .. 30001, X / Y one voxel over their tile,
+              under empty / one-octant / full / sphere masks and on an
+              image with NaN / inf off the mask) and their SASS
+              (nc_sass_check: no FFMA in the walks);
   4. main     four paths of user entry points, the launch counters reset
               before each and read after it. Features: the CLI
               (extract-features -s 0.6 2.4, hessian-features with and
@@ -149,7 +160,10 @@ failing phase exits non-zero:
               and no other launch), one config-4 histogram, one
               multiscale_features8_fused pass, one sweep_multi pass and one
               4-block sharded features8 pass at sigma 1.2 and 4.8
-              (torch.profiler, 3 calls each).
+              (torch.profiler over 3 calls after a warm-up step, each
+              kernel's events counted from the raw event list: a count not
+              a multiple of the calls reads "not measured"), in a process
+              of its own (--profile).
 
 Two yardsticks: "call ms" (cuda_ms) starts each call on an idle card, so
 it holds the wrapper's host time, what a caller waits for; "device ms"
@@ -169,7 +183,12 @@ channels as value-sorted triples and the normalized convolution inside the
 mask, is printed beside it. The CLI outputs are held against the plain f64
 ops within 1e-4 of that measure, the scales of the multi-scale stack within
 1e-4 or twice the distance of the per-scale f32 pass from them (the f32
-floor of a wide sigma's second differences). The sharded results equal the
+floor of a wide sigma's second differences). Wherever eigenvalues are held
+to another computation within a tolerance, they are held within it both as
+value-sorted triples and per channel (eigen_channel_error: against the
+triple's joint scale, as sorted triples only where the reference's
+adjacent |e_k| differ by less than twice the tolerance), so an eigenvalue
+in the wrong channel outside a tie fails. The sharded results equal the
 single-device port to the bit wherever both run the same kernel arithmetic
 (every sigma the single-device dispatcher does not send to the xs-stream
 branch, y-z-x, where the sharded route takes the normalized convolution,
@@ -354,6 +373,17 @@ TAP_XS_SHAPES = ((15, 289, 33), (33, 15, 33), (29, 31, 97), (5, 40, 33),
                  (40, 9, 33), (23, 17, 1))
 XS_DIRECT_RADII = tuple(range(1, 13)) + (20, 29)
 YS_CHECK_SIGMAS = ((2.4,), YS_SIGMAS, (0.6, 2.4, 4.8), SIGMAS)
+# the normalized-convolution kernels' radii checked one by one on each axis
+# (sigma 0, the identity, beside them; MAX_RADIUS last) and anisotropic
+# radii (x, y, z); their shapes: Z of 1, 2, 5, 127 and 513 (a z run is 4
+# voxels, a block's rows of up to 1024 one chunk), one voxel over a z chunk
+# (1025) and past the 29056 that bounded the old z pass, X and Y thin and one
+# voxel over the x / y tile of 128
+NC_CHECK_RADII = (1, 2, 4, 11, 14, 22, 28, 64, 128)
+NC_ANISO_RADII = ((28, 14, 22), (128, 1, 64), (2, 64, 11), (14, 28, 128))
+NC_CHECK_SHAPES = ((7, 9, 1), (9, 7, 2), (6, 5, 5), (5, 6, 127),
+                   (3, 4, 513), (2, 3, 1025), (1, 2, 30001), (129, 3, 33),
+                   (3, 129, 33), (129, 130, 5))
 # the scales at which phase 5 times the three features8 branches against
 # each other (the dispatch table): these, and one sigma more for every x
 # radius 4 .. 28 at 0.78 mm that they leave out and for DISPATCH_WIDE_RADII,
@@ -405,32 +435,50 @@ def card_line():
 # comparisons
 # ---------------------------------------------------------------------------
 
-def _sorted3(a, b, c):
-    lo = torch.minimum(torch.minimum(a, b), c)
-    hi = torch.maximum(torch.maximum(a, b), c)
-    mid = torch.maximum(torch.minimum(a, b), torch.minimum(torch.maximum(a, b), c))
-    return lo, mid, hi
-
-
 def _rel(got, ref):
     """(max|got-ref| / max(max|ref|, 1), max|got-ref|) as floats, in f64."""
     d = (got.double() - ref.double()).abs().max().item()
     return d / max(ref.double().abs().max().item(), 1.0), d
 
 
-def feature_errors(got, ref, eig=(0, 1, 2)):
+def feature_errors(got, ref, eig=(0, 1, 2), tol=None):
     """Worst (relative, absolute) error over a channel tuple; the channels
-    at positions `eig` (none or three) are compared as value-sorted
-    triples."""
+    at positions `eig` (none or three: e1, e2, e3) compared as value-sorted
+    triples and, given the tolerance `tol` the caller holds them to, also
+    per channel outside the ties (eigen_channel_error): an eigenvalue in
+    another channel than the reference's, where no tie excuses it, then
+    counts."""
+    from ife_tpu_torch.ops.eigen import value_sorted3
+
     rel = ab = 0.0
     pairs = [(got[i], ref[i]) for i in range(len(ref)) if i not in eig]
     if eig:
-        pairs += zip(_sorted3(*(got[i] for i in eig)),
-                     _sorted3(*(ref[i] for i in eig)))
-    for g, r in pairs:
-        e_rel, e_abs = _rel(g, r)
+        pairs += zip(value_sorted3(*(got[i] for i in eig)),
+                     value_sorted3(*(ref[i] for i in eig)))
+    errs = [_rel(g, r) for g, r in pairs]
+    if eig and tol is not None:
+        errs.append(eigen_channel_error([got[i] for i in eig],
+                                        [ref[i] for i in eig], tol))
+    for e_rel, e_abs in errs:
         rel, ab = max(rel, e_rel), max(ab, e_abs)
     return rel, ab
+
+
+def eigen_channel_error(got, ref, tol):
+    """(relative, absolute) error of three eigenvalue channels against the
+    triple's joint scale s = max(max|ref|, 1): channel by channel where
+    ref's adjacent |e_k| differ by more than the margin 2 tol s, as
+    value-sorted triples where they tie (tie_sorted_eigenvalues; margin as
+    PERF.md section 2 states it). Within tol whenever the sorted triples are,
+    unless an eigenvalue sits in another channel than the reference's
+    outside a tie."""
+    from ife_tpu_torch.ops.eigen import tie_sorted_eigenvalues
+
+    s = max(max(r.abs().max().item() for r in ref), 1.0)
+    g, r = tie_sorted_eigenvalues(list(got), list(ref), 2 * tol * s)
+    ab = max((a.double() - b.double()).abs().max().item()
+             for a, b in zip(g, r))
+    return ab / s, ab
 
 
 def bit_equal(got, ref):
@@ -957,6 +1005,104 @@ def tap_xs_radius_checks(errs):
         "clamped sphere: bit-equal to the twins")
 
 
+def radii_spacing(radii, sigma=1.0):
+    """Per-axis spacing at which `sigma` has the x / y / z radii `radii`
+    (radius = ceil(4.5 sigma / h))."""
+    return tuple(4.5 * sigma / (r - 0.5) for r in radii)
+
+
+def nc_entry_pairs(img, m, sigma, sp):
+    """(name, kernel call, plain twin call, inside-mask or None) of the four
+    entries on csrc/normalized_conv.cu's kernels: the z pass with the divide
+    (normalized_conv, its tiled entry at 1 - 3 slabs) and in place
+    (smooth_yz, smooth_xz)."""
+    from ife_tpu_torch import kernels as K
+
+    inside = m != 0
+    pairs = [
+        ("normalized_conv",
+         lambda: K.fused_normalized_conv_sweep(img, m, sigma, sp),
+         lambda: K.normalized_conv_plain(img, m, sigma, sp), inside),
+        ("smooth_yz", lambda: K.fused_smooth_yz(img, m, sigma, sp),
+         lambda: K.smooth_yz_plain(img, m, sigma, sp), None),
+        ("smooth_xz", lambda: K.fused_smooth_xz(img, m, sigma, sp),
+         lambda: K.smooth_xz_plain(img, m, sigma, sp), None),
+    ]
+    pairs += [("normalized_conv_tiled",
+               lambda n=n: K.fused_normalized_conv_sweep_tiled(
+                   img, m, sigma, sp, n_tiles=n),
+               lambda n=n: K.normalized_conv_tiled_plain(
+                   img, m, sigma, sp, n_tiles=n), inside)
+              for n in (1, 2, 3)]
+    return pairs
+
+
+def nc_radius_checks(errs):
+    """The four entries on csrc/normalized_conv.cu (nc_entry_pairs: both
+    forms of the z pass, the paired and single axis passes) against their
+    twins: every radius NC_CHECK_RADII on each axis and NC_ANISO_RADII on
+    (37, 35, 33) under the sphere; sigma 4.8 and 0.6 at FULL_SPACING (radii
+    28 / 28 / 22 and 4 / 4 / 3) and radii (128, 64, 11) on every
+    NC_CHECK_SHAPES; under an empty, a one-octant, a full and the sphere
+    mask, and on an image with NaN and +-inf where the sphere is 0; the
+    tiled entry at 1 - 3 slabs also against the untiled kernel. The passes
+    skip nothing, so every output is the twin's, NaN of 0/0 included."""
+    from ife_tpu_torch import kernels as K
+
+    dev = torch.device("cuda")
+    n = 0
+
+    def check(label, img, m, sigma, sp):
+        nonlocal n
+        for name, kern, plain, inside in nc_entry_pairs(img, m, sigma, sp):
+            rel, _ = kernel_check(f"{name} {label}", kern(), plain(), inside)
+            errs[name].append(rel)
+            n += 1
+        untiled = K.fused_normalized_conv_sweep(img, m, sigma, sp)
+        for t in (1, 2, 3):
+            tiled = K.fused_normalized_conv_sweep_tiled(img, m, sigma, sp,
+                                                        n_tiles=t)
+            if not bit_equal((tiled,), (untiled,)):
+                raise PhaseError(f"normalized_conv_tiled {label} n_tiles {t}: "
+                                 "differs from the untiled kernel")
+
+    shape = (37, 35, 33)
+    img, sphere = _inputs(shape, 0, dev)
+    check(f"{shape} sigma 0", img, sphere, 0.0, FULL_SPACING)
+    radii = [tuple(r if a == d else 2 for a in range(3))
+             for d in range(3) for r in NC_CHECK_RADII] + list(NC_ANISO_RADII)
+    for rs in radii:
+        check(f"{shape} radii {rs}", img, sphere, 1.0, radii_spacing(rs))
+    torch.cuda.synchronize()
+    for shape in NC_CHECK_SHAPES:
+        img, sphere = _inputs(shape, 0, dev)
+        for sigma, sp in ((4.8, FULL_SPACING), (0.6, FULL_SPACING),
+                          (1.0, radii_spacing((128, 64, 11)))):
+            check(f"{shape} sigma {sigma} spacing {sp}", img, sphere, sigma,
+                  sp)
+        torch.cuda.synchronize()
+    shape = (40, 36, 33)
+    img, sphere = _inputs(shape, 0, dev)
+    masks = region_masks(shape, dev, sphere)
+    bad = img.clone()
+    out = sphere == 0
+    bad[out] = torch.tensor([float("nan"), float("inf"), -float("inf")],
+                            device=dev).repeat(int(out.sum()) // 3 + 1)[
+                                :int(out.sum())]
+    for sigma in (2.4, 4.8):
+        for label, m in masks.items():
+            check(f"{shape} sigma {sigma} mask {label}", img, m, sigma,
+                  FULL_SPACING)
+        check(f"{shape} sigma {sigma} NaN / inf image off the sphere", bad,
+              sphere, sigma, FULL_SPACING)
+    torch.cuda.synchronize()
+    say("kernels", f"normalized_conv, smooth_yz, smooth_xz and the tiled entry "
+        f"(1 - 3 slabs, also == untiled): {n} cases bit-equal to the twins, "
+        f"radii {NC_CHECK_RADII} on each axis, {NC_ANISO_RADII} and sigma 0; "
+        f"shapes {NC_CHECK_SHAPES}; masks empty / one octant / full / sphere, "
+        "NaN / inf image off the mask")
+
+
 def phase_kernels(errs):
     from ife_tpu_torch import kernels as K
 
@@ -1010,6 +1156,8 @@ def phase_kernels(errs):
     sweep_radius_checks(errs)
     xs_ys_radius_checks(errs)
     tap_xs_radius_checks(errs)
+    nc_radius_checks(errs)
+    nc_sass_check()
 
 
 def hist_edges(chans, E):
@@ -1294,15 +1442,16 @@ def phase_main(tmp):
         rest = [i for i in range(len(want)) if i not in eig]
         e_rest, _ = feature_errors([got[i] for i in rest],
                                    [want[i] for i in rest], ())
-        e_eig, _ = feature_errors([got[i] for i in eig],
-                                  [want[i] for i in eig])
         e_twin, _ = feature_errors([twin[i] for i in eig],
                                    [want[i] for i in eig])
+        bound = max(TOL, 2 * e_twin)
+        e_eig, _ = feature_errors([got[i] for i in eig],
+                                  [want[i] for i in eig], tol=bound)
         say("main", f"{name}: {len(got)} files finite, zero outside the "
             f"mask; from the f64 plain ops: other channels {e_rest:.2e}, "
-            f"sorted eigenvalues {e_eig:.2e} (the kernels' f32 twins: "
-            f"{e_twin:.2e})")
-        if e_rest > TOL or e_eig > max(TOL, 2 * e_twin):
+            f"eigenvalues {e_eig:.2e} (sorted triples and per channel "
+            f"outside ties; the kernels' f32 twins, sorted: {e_twin:.2e})")
+        if e_rest > TOL or e_eig > bound:
             raise PhaseError(f"{name}: too far from the f64 plain ops")
     return launches, big_img, big_mask
 
@@ -1488,9 +1637,10 @@ def phase_multiscale(big_img, big_mask):
     # distance from the per-scale pass itself is printed.
     eig, rest = (2, 3, 4), (0, 1, 5, 6, 7)
 
-    def errors(a, b):
+    def errors(a, b, tol=None):
         return (feature_errors([a[i] for i in rest], [b[i] for i in rest], ())[0],
-                feature_errors([a[i] for i in eig], [b[i] for i in eig])[0])
+                feature_errors([a[i] for i in eig], [b[i] for i in eig],
+                               tol=tol)[0])
 
     for got, sigma in zip(stack, SIGMAS):
         for c in got:
@@ -1500,12 +1650,13 @@ def phase_multiscale(big_img, big_mask):
                 raise PhaseError(f"stack s={sigma}: nonzero outside the mask")
         want = features8(img.double(), mask, sigma, sp).unbind(-1)
         one = features8_auto_channels(img, mask, sigma, sp)
-        e_rest, e_eig = errors(got, want)
         o_rest, o_eig = errors(one, want)
+        e_rest, e_eig = errors(got, want, max(TOL, 2 * o_eig))
         d_rest, d_eig = errors(got, one)
         say("multiscale", f"s={sigma}: from the f64 plain ops: other channels "
-            f"{e_rest:.2e}, sorted eigenvalues {e_eig:.2e} (the per-scale "
-            f"pass: {o_rest:.2e}, {o_eig:.2e}); from the per-scale pass: "
+            f"{e_rest:.2e}, eigenvalues {e_eig:.2e} (sorted triples and per "
+            f"channel outside ties; the per-scale pass: {o_rest:.2e}, "
+            f"{o_eig:.2e} sorted); from the per-scale pass: "
             f"{d_rest:.2e}, {d_eig:.2e}")
         if e_rest > max(TOL, 2 * o_rest) or e_eig > max(TOL, 2 * o_eig):
             raise PhaseError(f"multi-scale stack s={sigma}: too far from the "
@@ -1560,7 +1711,7 @@ def sharded_feature_checks(img, mask, mesh, label, singles):
         if not bit_equal(got, exact):
             raise PhaseError(f"sharded_features8 {label} s={sigma}: differs "
                              "from the single-device kernels")
-        rel, _ = feature_errors(got, near, (2, 3, 4))
+        rel, _ = feature_errors(got, near, (2, 3, 4), tol=SHARD_TOL)
         line.append(f"s={sigma} {'sweep+clamps' if sweep else 'nc+' + post[15:]}"
                     f" bit-equal" + ("" if near is exact else
                                      f" (dispatcher's pass: {rel:.2e})"))
@@ -1659,7 +1810,7 @@ def phase_sharded_cli(tmp):
         if takes_staged_passes(sigma) and not bit_equal(got, want):
             raise PhaseError(f"extract-features --sharded s={sigma}: files "
                              "differ from the unsharded run's")
-        worst[sigma] = feature_errors(got, want, (2, 3, 4))[0]
+        worst[sigma] = feature_errors(got, want, (2, 3, 4), tol=SHARD_TOL)[0]
         if worst[sigma] > SHARD_TOL:
             raise PhaseError(f"extract-features --sharded s={sigma}: "
                              f"{worst[sigma]:.2e} from the unsharded files")
@@ -1759,7 +1910,8 @@ def phase_sharded(img, mask):
             raise PhaseError("tap / xs at 512^3: output not finite or not "
                              f"{(8,) + FULL}")
     sweep = K.fused_features8_sweep(img, mask, 1.2, sp)
-    rel_tap, _ = feature_errors(outs[0].unbind(0), sweep.unbind(0), (2, 3, 4))
+    rel_tap, _ = feature_errors(outs[0].unbind(0), sweep.unbind(0), (2, 3, 4),
+                                tol=TAP_TOL)
     if not bit_equal(outs[1].unbind(0), sweep.unbind(0)) or rel_tap > TAP_TOL:
         raise PhaseError("xs differs from the sweep (the same passes), or tap "
                          f"is {rel_tap:.2e} from it")
@@ -1794,9 +1946,12 @@ def timed(label, fn, phase="full"):
 
 def timed_both(label, fn, phase="full"):
     """(call ms, device ms), medians of cuda_ms and device_ms, both
-    printed."""
-    med, lo, hi = cuda_ms(fn)
+    printed. The device yardstick first: taken first after the phase's
+    preceding work (a plain twin's runs, empty_cache), call ms read 0.2 -
+    0.3 ms high where the same call timed again right away read what a
+    fresh process reads (call_gap); device_ms's 60 calls absorb that."""
     dmed, dlo, dhi = device_ms(fn)
+    med, lo, hi = cuda_ms(fn)
     say(phase, f"{label}: call {med:.3f} ms (min {lo:.3f}, max {hi:.3f}); "
         f"device {dmed:.3f} ms (min {dlo:.3f}, max {dhi:.3f})")
     return med, dmed
@@ -2128,6 +2283,10 @@ def phase_full_modes(img, mask, errs, results):
         if name in ("features8_tap", "features8_xs"):
             continue
         km, kd = timed_both(f"{name} kernel", kern)
+        if name.startswith("hessian"):  # the call ms above the device ms
+            say("full", f"{name} call-ms gap: [host ms, of it allocating 6 "
+                f"outputs, Python objects, SM MHz, call ms again, after 1 s "
+                f"idle] {call_gap(kern, img, 6)}")
         pm = timed(f"{name} plain", plain)
         rel, ab = kernel_check(f"{name} 512^3", kern(), plain())
         errs[name].append(rel)
@@ -2352,24 +2511,42 @@ def host_ms(fn, calls=DEVICE_CALLS):
     return dt
 
 
-def kernel_ms(fn, match, calls=3):
-    """ms a call of fn spends in the CUDA kernels whose name holds `match`,
-    from torch.profiler's device time over `calls` calls after a warm one:
-    the kernel alone, without the wrapper's other launches, its copies or
-    the gaps a wrapper that waits for the card leaves. None where the
-    profiler records no device time."""
-    from torch.profiler import ProfilerActivity, profile
+def call_gap(fn, like, outputs):
+    """What stands between a call's ms and its device ms: [the host's ms a
+    call with the card busy (host_ms), of it the caching allocator's ms for
+    the call's `outputs` volumes like `like` (host clock, 10 rounds), the
+    Python heap's tracked objects, the card's SM clock in MHz now, the call
+    ms (cuda_ms) once more right away, and after the card idled 1 s]."""
+    import gc
 
-    fn()
+    again = cuda_ms(fn)[0]
+    time.sleep(1.0)
+    idle = cuda_ms(fn)[0]
+    host = host_ms(fn)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0))
-             for ev in prof.key_averages() if match in ev.key)
-    return us / calls / 1e3 if us > 0 else None
+    t0 = time.perf_counter()
+    for _ in range(DEVICE_CALLS):
+        outs = [torch.empty_like(like) for _ in range(outputs)]
+        del outs
+    alloc = (time.perf_counter() - t0) / DEVICE_CALLS * 1e3
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    return [round(host, 3), round(alloc, 3), len(gc.get_objects()), clock,
+            round(again, 3), round(idle, 3)]
+
+
+def kernel_ms(fn, match, calls=3):
+    """ms a call of fn spends in the CUDA kernels whose name holds `match`
+    (kernel_breakdown): the kernel alone, without the wrapper's other
+    launches, its copies or the gaps a wrapper that waits for the card
+    leaves. None where the profiler records no device time or loses
+    events."""
+    rows = kernel_breakdown(fn, calls)
+    if isinstance(rows, str):
+        return None
+    ms = sum(t for k, _, t in rows if match in k)
+    return ms if ms > 0 else None
 
 
 def hist_shape_times(img, mask):
@@ -2590,11 +2767,12 @@ def launches_ms(fn, n):
     return a.elapsed_time(b) / n
 
 
-def sass_ldg_counts():
-    """mangled kernel name -> {"LDG": n, "LDGSTS": n}: the global loads
-    (LDG) and the asynchronous global-to-shared copies (LDGSTS, cp.async)
-    of every Hessian and tap instantiation in the built library (cuobjdump
-    -sass), or None without cuobjdump."""
+def sass_op_counts(match, ops):
+    """mangled kernel name -> {op: n}: how many SASS instructions of each
+    opcode in `ops` (an opcode with its modifiers: LDS.128 counts as LDS)
+    the code of every function of the built library whose name holds one of
+    `match` has (cuobjdump -sass; static counts), or None without
+    cuobjdump."""
     from pathlib import Path
 
     from ife_tpu_torch.kernels import _build
@@ -2606,19 +2784,51 @@ def sass_ldg_counts():
                          capture_output=True, text=True, timeout=300)
     if res.returncode != 0:
         raise PhaseError(f"cuobjdump failed: {res.stderr.strip()[:400]}")
+    pattern = re.compile(r"\b(" + "|".join(ops) + r")[.\s]")
     counts, name = {}, None
     for line in res.stdout.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            keep = "hessian_eig_kernel" in name or "features8_tap_kernel" in name
-            name = name if keep else None
+            name = name if any(m in name for m in match) else None
             if name:
-                counts[name] = {"LDG": 0, "LDGSTS": 0}
+                counts[name] = dict.fromkeys(ops, 0)
         elif name:
-            op = re.search(r"\b(LDG|LDGSTS)[.\s]", line)
+            op = pattern.search(line)
             if op:
                 counts[name][op.group(1)] += 1
     return counts
+
+
+def nc_sass_check():
+    """The normalized-convolution kernels' SASS (static counts): no FFMA in
+    the walks (the build is --fmad=false; a contracted multiply-add would
+    break bit-equality with the twins). FFMA appears only in the z pass
+    with the divide, as the Newton steps of the correctly rounded IEEE
+    divide (beside its MUFU.RCP), whose walk has the in-place form's FMUL
+    count. Prints FMUL, FADD, LDS (shared loads: inputs and taps) and LDC
+    (constant loads) of each."""
+    counts = sass_op_counts(("fir_axis_kernel", "fir_z_kernel"),
+                            ("FFMA", "FMUL", "FADD", "LDS", "LDC", "MUFU"))
+    if counts is None:
+        say("kernels", "nc SASS: not measured (no cuobjdump)")
+        return
+    fmul = {k: c["FMUL"] for k, c in counts.items()}
+    for k, c in counts.items():
+        if c["FFMA"] == 0:
+            continue
+        twin = k.replace("fir_z_kernelILb1E", "fir_z_kernelILb0E")
+        if (c["MUFU"] == 0 or twin == k or twin not in fmul
+                or fmul[twin] != c["FMUL"]):
+            raise PhaseError(f"nc SASS: FFMA outside the divide in {k}: {c}")
+    if len(counts) != 4:
+        raise PhaseError(f"nc SASS: expected 4 kernels, found {counts}")
+    say("kernels", "nc SASS (static counts), no FFMA in the walks: "
+        + "; ".join(
+            f"{k[:48]} FMUL {c['FMUL']} FADD {c['FADD']} LDS {c['LDS']} "
+            f"LDC {c['LDC']} (LDS / FMUL {c['LDS'] / max(c['FMUL'], 1):.3f}, "
+            f"LDC / FMUL {c['LDC'] / max(c['FMUL'], 1):.3f}), FFMA "
+            f"{c['FFMA']} (MUFU {c['MUFU']})"
+            for k, c in sorted(counts.items())))
 
 
 def streaming_turns(name, img):
@@ -2730,7 +2940,10 @@ def phase_probes(img, mask, errs, results, library, modes=PROBE_MODES):
         if not math.isclose(t5, t20, rel_tol=OVH_TOL):
             raise PhaseError(f"ovh: {t5:.3f} against {t20:.3f} ms a launch")
     if "ldg" in modes:
-        counts = sass_ldg_counts()
+        # the global loads (LDG) and asynchronous global-to-shared copies
+        # (LDGSTS, cp.async) of every Hessian and tap instantiation
+        counts = sass_op_counts(
+            ("hessian_eig_kernel", "features8_tap_kernel"), ("LDG", "LDGSTS"))
         if counts is None:
             say("probes", "LDG counts: not measured (no cuobjdump)")
         else:
@@ -2767,9 +2980,10 @@ def phase_probes(img, mask, errs, results, library, modes=PROBE_MODES):
 
 
 def phase_profile(img, mask):
-    """Device time per CUDA kernel of each pass, from torch.profiler; a
-    profiler that records no device time prints "not measured"."""
-    from torch.profiler import ProfilerActivity, profile, supported_activities
+    """Device time per CUDA kernel of each pass (kernel_breakdown); a
+    profiler that records no device time, or loses events, prints "not
+    measured"."""
+    from torch.profiler import ProfilerActivity, supported_activities
 
     from ife_tpu_torch.ops.features import (
         features8_auto_channels, hessian_eig_features_channels,
@@ -2808,20 +3022,9 @@ def phase_profile(img, mask):
                                                 stack=False))
                for s in (1.2, 4.8)]
     for label, fn in passes:
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                fn()
-            torch.cuda.synchronize()
-        rows = []
-        for ev in prof.key_averages():
-            us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0))
-            if us > 0 and ev.count:
-                rows.append((ev.key[:60], ev.count // 3, us / 3 / 1e3))
-        if not rows:
-            say("profile", f"{label}: not measured (no device time recorded)")
+        rows = kernel_breakdown(fn)
+        if isinstance(rows, str):
+            say("profile", f"{label}: not measured ({rows})")
             continue
         total = sum(ms for _, _, ms in rows)
         # the route launches the Hessian kernel's reference instantiation
@@ -2833,9 +3036,49 @@ def phase_profile(img, mask):
             raise PhaseError(f"{label}: not the hessian_eig kernel's "
                              f"reference output alone: {rows}")
         say("profile", f"{label}: device {total:.3f} ms per pass = "
-            + "; ".join(f"{k} x{n} {ms:.3f}" for k, n, ms in
+            + "; ".join(f"{k[:60]} x{n} {ms:.3f}" for k, n, ms in
                         sorted(rows, key=lambda r: -r[2])))
         torch.cuda.empty_cache()
+
+
+def kernel_breakdown(fn, calls=3, attempts=3):
+    """[(kernel, launches a call, device ms a call)] of the device
+    activities (kernels, copies, sets) of fn, counted one by one from
+    torch.profiler's raw event list over `calls` calls, after a warm call
+    and a warm-up step whose events the profiler drops by design. A string
+    saying why where that cannot be had: no device time recorded, or a
+    kernel whose events are not a multiple of `calls` in `attempts` tries
+    (the profiler lost some; dividing would report a fraction of the
+    truth)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    torch.cuda.synchronize()
+    why = "no device time recorded"
+    for _ in range(attempts):
+        events = []
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=calls),
+                     on_trace_ready=lambda p: events.extend(p.events())) as prof:
+            for _ in range(1 + calls):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        counts, us = {}, {}
+        for ev in events:  # the steps' own spans on the card are no work
+            if (ev.device_type != DeviceType.CUDA or ev.device_time_total <= 0
+                    or ev.name.startswith("ProfilerStep")):
+                continue
+            counts[ev.name] = counts.get(ev.name, 0) + 1
+            us[ev.name] = us.get(ev.name, 0.0) + ev.device_time_total
+        lost = {k[:60]: n for k, n in counts.items() if n % calls}
+        if counts and not lost:
+            return [(k, n // calls, us[k] / calls / 1e3)
+                    for k, n in counts.items()]
+        if lost:
+            why = f"events not a multiple of {calls} calls: {lost}"
+    return why
 
 
 def rank_worker(rank, world, port):
@@ -2874,7 +3117,7 @@ def rank_worker(rank, world, port):
                                                 stack=False))
             want = features8_auto_channels(img, mask, sigma, sp)
             if not takes_staged_passes(sigma):  # the xs-stream branch
-                rel, _ = feature_errors(got, want, (2, 3, 4))
+                rel, _ = feature_errors(got, want, (2, 3, 4), tol=SHARD_TOL)
                 if rel > SHARD_TOL:
                     raise PhaseError(f"rank {rank} s={sigma}: {rel:.2e} from "
                                      "the single-device pass")
@@ -3026,12 +3269,91 @@ def hessian_times(img, sp):
         entries.insert(6, ("hessian reference",
                            lambda: K.hessian_eig_reference_features(img, sp)))
     res = {name: both_ms(fn) for name, fn in entries}
+    # beside phase 5's: [host ms, of it allocating 6 outputs, Python
+    # objects, SM MHz, call ms again, after 1 s idle] (call_gap)
+    res["hessian x_halo call-ms gap"] = call_gap(entries[1][1], img, 6)
     del pad
     torch.cuda.empty_cache()
     return res
 
 
-def sweep_times(label, groups=("sweep", "tap", "hessian")):
+def clocks_under_load(fn, seconds=3.0):
+    """[median SM MHz, median board W, samples] of nvidia-smi's readings
+    every 100 ms while fn runs back to back on the card for `seconds`."""
+    import statistics
+
+    fn()
+    torch.cuda.synchronize()
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(DEVICE_CALLS):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out = smi.communicate(timeout=60)[0]
+    rows = [line.split(",") for line in out.splitlines() if "," in line]
+    # the readings taken while the card was busy: skip the first and last
+    rows = rows[2:-2] or rows
+    mhz = [float(r[0]) for r in rows]
+    watts = [float(r[1]) for r in rows]
+    return [statistics.median(mhz), statistics.median(watts), len(rows)]
+
+
+def nc_times(img, mask, sp):
+    """The normalized-convolution part of --sweep-times (both_ms each):
+    nc at sigma 2.4 / 4.8, its tiled entry (2 slabs) at 4.8, smooth_yz at
+    2.4 (y radius 14) / 4.8 and smooth_xz at 2.4 / 4.8, then what runs them:
+    features8 at 2.4 / 4.8 (features8_auto_channels), the config-3 stack in
+    its one-launch form and sharded_features8 on 4 blocks on x at 4.8; for
+    nc 4.8, smooth_yz 2.4 and smooth_xz 4.8 the profiler's rows per kernel
+    (kernel_breakdown) and the SM clock and board power while each runs
+    back to back (clocks_under_load)."""
+    from ife_tpu_torch import kernels as K
+    from ife_tpu_torch import parallel as P
+    from ife_tpu_torch.ops.features import features8_auto_channels
+
+    res = {}
+    for s in YS_SIGMAS:
+        res[f"nc {s}"] = both_ms(
+            lambda: K.fused_normalized_conv_sweep(img, mask, s, sp))
+    res["nc tiled 4.8"] = both_ms(lambda: K.fused_normalized_conv_sweep_tiled(
+        img, mask, 4.8, sp, n_tiles=2))
+    for name in ("smooth_yz", "smooth_xz"):
+        fn = getattr(K, f"fused_{name}")
+        for s in YS_SIGMAS:
+            res[f"{name} {s}"] = both_ms(lambda: fn(img, mask, s, sp))
+    for s in YS_SIGMAS:
+        res[f"features8 {s}"] = both_ms(
+            lambda: features8_auto_channels(img, mask, s, sp))
+    res["config-3 stack one-launch"] = both_ms(
+        lambda: config3_stack(img, mask, sp))
+    mesh = P.make_mesh(4, ("x",))
+    xi, mi = P.shard_volume(img, mesh), P.shard_volume(mask, mesh)
+    res["sharded_features8 4 blocks on x 4.8"] = both_ms(
+        lambda: P.sharded_features8(xi, mi, 4.8, mesh, sp, stack=False))
+    del xi, mi
+    # the passes each entry launches: [kernel, launches, device ms] a call
+    for label, fn in (
+            ("nc 4.8", lambda: K.fused_normalized_conv_sweep(img, mask, 4.8,
+                                                             sp)),
+            ("smooth_yz 2.4", lambda: K.fused_smooth_yz(img, mask, 2.4, sp)),
+            ("smooth_xz 4.8", lambda: K.fused_smooth_xz(img, mask, 4.8, sp))):
+        rows = kernel_breakdown(fn)
+        res[f"{label} kernels"] = rows if isinstance(rows, str) else [
+            [k[:60], n, round(ms, 3)] for k, n, ms in rows]
+        # the clock the FIR's arithmetic runs at: [SM MHz, W, samples]
+        res[f"{label} under load"] = clocks_under_load(fn)
+    torch.cuda.empty_cache()
+    return res
+
+
+def sweep_times(label, groups=("sweep", "tap", "hessian", "nc")):
     """`--sweep-times [ROOT [GROUP...]]`: one JSON line of 512^3 times
     (both_ms: call ms and device ms, each median, min, max of 5) of the
     ife_tpu_torch package on sys.path. Group "sweep": the sweep at sigma
@@ -3039,8 +3361,10 @@ def sweep_times(label, groups=("sweep", "tap", "hessian")):
     staged pair, xs_stream at x radius 11 / 14 / 17 / 20 / 24 (14 also under
     a mask of ones), ys_multi at S = 1 .. 4 (S = 2 also under a mask of
     ones); group "tap": the direct entries (tap_xs_times); group "hessian":
-    the Hessian kernel in every mode and output (hessian_times). Run it on
-    two checkouts in turns to compare them within one call on one card."""
+    the Hessian kernel in every mode and output (hessian_times); group
+    "nc": the normalized-convolution kernels and what runs them (nc_times).
+    Run it on two checkouts in turns to compare them within one call on one
+    card."""
     from ife_tpu_torch import kernels as K
 
     if not torch.cuda.is_available():
@@ -3054,6 +3378,8 @@ def sweep_times(label, groups=("sweep", "tap", "hessian")):
         res.update(tap_xs_times(img, mask, sp))
     if "hessian" in groups:
         res.update(hessian_times(img, sp))
+    if "nc" in groups:
+        res.update(nc_times(img, mask, sp))
     if "sweep" not in groups:
         print(json.dumps(res), flush=True)
         return
@@ -3099,12 +3425,12 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--sweep-times"]:
         other = os.path.abspath(sys.argv[2]) if len(sys.argv) > 2 else root
-        groups = tuple(sys.argv[3:]) or ("sweep", "tap", "hessian")
+        groups = tuple(sys.argv[3:]) or ("sweep", "tap", "hessian", "nc")
         sys.path.insert(0, other)
         try:
-            if not set(groups) <= {"sweep", "tap", "hessian"}:
+            if not set(groups) <= {"sweep", "tap", "hessian", "nc"}:
                 raise PhaseError(f"unknown groups {groups}: sweep, tap, "
-                                 "hessian")
+                                 "hessian, nc")
             sweep_times(other, groups)
         except PhaseError as e:
             print(f"chip_smoke: --sweep-times failed: {e}", file=sys.stderr)
@@ -3129,6 +3455,16 @@ def main() -> int:
             phase_dispatch(img, mask)
         except PhaseError as e:
             print(f"chip_smoke: --dispatch-table failed: {e}", file=sys.stderr)
+            return 1
+        return 0
+
+    if sys.argv[1:2] == ["--profile"]:
+        try:
+            phase_build()
+            img, mask = _inputs(FULL, 2, "cuda")
+            phase_profile(img, mask)
+        except PhaseError as e:
+            print(f"chip_smoke: --profile failed: {e}", file=sys.stderr)
             return 1
         return 0
 
@@ -3205,7 +3541,17 @@ def main() -> int:
         if missing:
             raise PhaseError(f"no device time for {missing}")
         phase = "profile"
-        phase_profile(img, mask)
+        # in a process of its own: in this one, after the sharded phase's
+        # NCCL group and phase 5's profiles, the profiler kept two of three
+        # events of the passes of one kernel
+        del img, mask
+        torch.cuda.empty_cache()
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--profile"], capture_output=True, text=True,
+                             timeout=600)
+        print(res.stdout, end="", flush=True)
+        if res.returncode != 0:
+            raise PhaseError(res.stderr.strip()[-400:])
     except PhaseError as e:
         print(f"chip_smoke: phase {phase} failed: {e}", file=sys.stderr)
         return 1

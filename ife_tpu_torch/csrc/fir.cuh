@@ -36,6 +36,19 @@ __device__ __forceinline__ int clamp_index(int i, int n) {
     return min(max(i, 0), n - 1);
 }
 
+// one float from global to shared memory without passing a register
+// (cp.async); visible to the issuing thread after cp_async_wait_all, to the
+// block after a barrier that follows it
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                 :: "r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // kRun consecutive outputs of a tap-ordered FIR, for kArrays arrays at once,
 // from ONE walk over the 2r + kRun inputs they share: load(i, v) sets v[a] to
 // input i of array a, and input i feeds output u with tap i - u where that

@@ -85,16 +85,6 @@ __host__ inline int sweep_chunk_x(long long X, int rx) {
     return (int)std::min<long long>(X, std::max(128, 32 * (rx + 1)));
 }
 
-__device__ __forceinline__ void cp_async_f32(float* dst, const float* src) {
-    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-                 :: "r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // The raw plane of a block: (SY + 2ry) x (SZ + 2rz) cells, cell (i, j) at
 // global (clamp(y0 - 1 - ry + i), clamp(z0 - 1 - rz + j)).
 struct RawTile {

@@ -3,9 +3,12 @@
 
 Replaces ife_tpu/kernels/fused.py:fused_normalized_conv_sweep. Three
 separable passes (x, y, z) over numerator and denominator with edge-clamped
-taps, the certainty used raw, the divide without epsilon. Every pass stages
-its inputs in shared memory; bound by the taps' arithmetic at large radii,
-by bytes at small ones; see the source for the design.
+taps, the certainty used raw, the divide without epsilon: one launch of the
+x pass for both arrays, one y launch each, the z pass with the divide. Every
+pass stages its inputs in shared memory at clamped positions and walks them
+taps outer, a run of outputs a thread; bound by the issue of the taps'
+unfused multiplies and adds at large radii, by bytes at small ones; see the
+source for the design. ``z_plan`` is the z pass's launch geometry.
 
 ``fused_normalized_conv_sweep_tiled`` replaces
 ife_tpu/kernels/fused.py:fused_normalized_conv_sweep_tiled: the same
@@ -37,7 +40,27 @@ from ife_tpu_torch.ops.stencil import (
 )
 
 MAX_RADIUS = 128  # csrc/normalized_conv.cu kMaxTaps = 2 * 128 + 1
-MAX_Z = 232448 // 8  # the z pass stages two float rows in <= 227 KB of shared memory
+# csrc/normalized_conv.cu: the z pass's outputs a thread, threads a block,
+# and the shared memory a block may take
+Z_RUN, Z_THREADS, Z_SMEM = 4, 256, 48 * 1024
+
+
+def z_plan(Z: int, r: int):
+    """The z pass's launch geometry (csrc/normalized_conv.cu z_plan, which
+    this mirrors): (rows, chunk, len) — the z rows a block owns, the outputs
+    a row and step (a multiple of Z_RUN; rows of up to Z_RUN * Z_THREADS
+    voxels are one chunk, longer ones take one block and several chunks),
+    and the inputs a row and array staged for a chunk, z = c0 - r + j for j
+    in [0, len). A block holds the taps and its rows' chunks in Z_SMEM."""
+    taps = (2 * r + 1 + 7) // 8 * 8
+    runs = -(-Z // Z_RUN)
+    if runs >= Z_THREADS:
+        rows, chunk = 1, Z_RUN * Z_THREADS
+    else:
+        rows, chunk = Z_THREADS // runs, Z_RUN * runs
+    length = chunk + (2 * r + 3) // 4 * 4 + 8
+    rows = max(1, min(rows, (Z_SMEM - 4 * taps) // (2 * 4 * length)))
+    return rows, chunk, length
 
 
 def normalized_conv_plain(image: torch.Tensor, certainty: torch.Tensor,
@@ -77,8 +100,6 @@ def _launch_normalized_conv(name, image, mask, sigma, spacing, truncate,
     check_cuda_volume(f"{name} image", image)
     check_cuda_volume(f"{name} mask", mask, shape=image.shape)
     X, Y, Z = image.shape
-    if Z > MAX_Z:
-        raise ValueError(f"{name}: Z={Z} > {MAX_Z}")
     per_axis = [smooth_taps(float(sigma), float(h), float(truncate))
                 for h in spacing]
     if max(r for _, r in per_axis) > MAX_RADIUS:
@@ -181,8 +202,6 @@ def _fused_smooth_pair(name, kernel, axes, image, certainty, sigma, spacing,
     check_cuda_volume(f"{name} image", image)
     check_cuda_volume(f"{name} certainty", certainty, shape=image.shape)
     X, Y, Z = image.shape
-    if Z > MAX_Z:
-        raise ValueError(f"{name}: Z={Z} > {MAX_Z}")
     per_axis = [smooth_taps(float(sigma), float(spacing[d]), float(truncate))
                 for d in axes]
     if max(r for _, r in per_axis) > MAX_RADIUS:

@@ -186,3 +186,33 @@ def eigenvalue_features(A: torch.Tensor, use_trig: bool = True) -> torch.Tensor:
     return torch.stack(
         eigenvalue_feature_channels(*A.unbind(-1), use_trig=use_trig), dim=-1
     )
+
+
+def tie_sorted_eigenvalues(got, ref, margin):
+    """The three eigenvalue channels of two computations (e1, e2, e3,
+    ordered |e3| <= |e2| <= |e1|) made comparable channel by channel:
+    returns (got', ref'), lists of three tensors. Where the reference's
+    adjacent magnitudes differ by more than `margin` (absolute, in the
+    channels' units) both keep their channels, so an eigenvalue in the
+    wrong channel shows as that channel's error; where they differ by less
+    (a tie or near tie, whose order follows the rounding of the field and
+    differs between the trig and the polynomial eigen paths) both triples
+    are sorted by value. With margin at least twice the error a comparison
+    allows, an implementation within that error of the reference's values
+    cannot order the channels otherwise outside the margin."""
+    g = [torch.as_tensor(x) for x in got]
+    r = [torch.as_tensor(x) for x in ref]
+    a = [x.abs() for x in r]
+    tie = ((a[0] - a[1]).abs() <= margin) | ((a[1] - a[2]).abs() <= margin)
+    gs, rs = value_sorted3(*g), value_sorted3(*r)
+    return ([torch.where(tie, gs[k], g[k]) for k in range(3)],
+            [torch.where(tie, rs[k], r[k]) for k in range(3)])
+
+
+def value_sorted3(a, b, c):
+    """(lo, mid, hi) of three tensors elementwise, by min / max alone."""
+    lo = torch.minimum(torch.minimum(a, b), c)
+    hi = torch.maximum(torch.maximum(a, b), c)
+    mid = torch.maximum(torch.minimum(a, b),
+                        torch.minimum(torch.maximum(a, b), c))
+    return lo, mid, hi

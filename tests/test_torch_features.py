@@ -1,6 +1,7 @@
 """The slice as a whole: ife_tpu_torch.ops.features against
 ife_tpu.ops.features on the same numpy inputs — f64 at <= 1e-9 (eigenvalue
-channels as value-sorted triples), and f32 within the per-channel error
+channels per channel, as value-sorted triples only where two magnitudes
+tie within twice the tolerance), and f32 within the per-channel error
 budget of docs/design.md "f32 per-channel error budget"."""
 import numpy as np
 import pytest
@@ -11,6 +12,7 @@ from ife_tpu.core.volume import sphere_mask as j_sphere_mask
 from ife_tpu.core.volume import synthetic_ct as j_synthetic_ct
 from ife_tpu.ops import features as JF
 from ife_tpu_torch.ops import features as TF
+from ife_tpu_torch.ops.eigen import tie_sorted_eigenvalues
 
 torch.set_num_threads(1)
 
@@ -45,22 +47,42 @@ def _inputs(shape, seed=5, radius_frac=0.45):
     return img, mask
 
 
-def _errors(got, want, eig):
-    """Per-channel max|got-want| / max(max|want|, 1); channels listed in
-    `eig` compared as value-sorted triples (ties swap channels legitimately).
-    got/want: (..., C) arrays."""
-    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    errs = []
-    gs = np.sort(got[..., list(eig)], -1) if eig else None
-    ws = np.sort(want[..., list(eig)], -1) if eig else None
-    for c in range(want.shape[-1]):
-        if c in eig:
-            k = list(eig).index(c)
-            g, w = gs[..., k], ws[..., k]
-        else:
-            g, w = got[..., c], want[..., c]
-        errs.append(np.abs(g - w).max() / max(np.abs(w).max(), 1.0))
-    return errs
+def _errors(got, want, eig, margin=2 * TOL):
+    """Per-channel max|got-want| / max(max|want|, 1); the eigenvalue
+    channels listed in `eig` compared per channel where want's adjacent
+    |e_k| differ by more than `margin` of their scale, as value-sorted
+    triples where they do not (tie_sorted_eigenvalues: ties swap channels
+    legitimately). `margin` is twice the tolerance the caller asserts, so an
+    implementation within it never shows a legitimate swap as an error;
+    margin=inf compares sorted triples alone. got/want: (..., C) arrays."""
+    got = np.array(got, np.float64)
+    want = np.array(want, np.float64)
+    if eig:
+        scale = max(np.abs(want[..., list(eig)]).max(), 1.0)
+        g, w = tie_sorted_eigenvalues(
+            [torch.from_numpy(got[..., c].copy()) for c in eig],
+            [torch.from_numpy(want[..., c].copy()) for c in eig],
+            margin * scale)
+        for k, c in enumerate(eig):
+            got[..., c], want[..., c] = g[k].numpy(), w[k].numpy()
+    return [np.abs(got[..., c] - want[..., c]).max()
+            / max(np.abs(want[..., c]).max(), 1.0)
+            for c in range(want.shape[-1])]
+
+
+def _assert_f32_as_accurate(got32, ref32, want, eig):
+    """The repo's criterion (tests/test_kernels.py): got32 no farther from
+    the f64 `want` than ife_tpu's f32 `ref32`, up to a factor 2 (or 1e-6),
+    per channel: with the eigenvalues as value-sorted triples, then per
+    channel outside the ties (margin: twice the largest error the first
+    comparison allows), both measured the same way."""
+    j32 = _errors(ref32, want, eig, margin=np.inf)
+    e32 = _errors(got32, want, eig, margin=np.inf)
+    assert all(e <= max(2 * j, 1e-6) for e, j in zip(e32, j32)), (e32, j32)
+    margin = 2 * max(max(2 * j32[c], 1e-6) for c in eig)
+    j32 = _errors(ref32, want, eig, margin=margin)
+    e32 = _errors(got32, want, eig, margin=margin)
+    assert all(e <= max(2 * j, 1e-6) for e, j in zip(e32, j32)), (e32, j32)
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -107,10 +129,9 @@ def test_fused_features8_matches_ife_tpu_fused_features8(shape, sigma):
     want32 = np.asarray(j_fused_features8(jnp.asarray(img, jnp.float32),
                                           jnp.asarray(mask), sigma, SPACING,
                                           interpret=True))
-    e32 = _errors(np.moveaxis(got32.numpy(), 0, -1), np.moveaxis(want, 0, -1),
-                  (2, 3, 4))
-    j32 = _errors(np.moveaxis(want32, 0, -1), np.moveaxis(want, 0, -1), (2, 3, 4))
-    assert all(e <= max(2 * j, 1e-6) for e, j in zip(e32, j32)), (e32, j32)
+    _assert_f32_as_accurate(np.moveaxis(got32.numpy(), 0, -1),
+                            np.moveaxis(want32, 0, -1),
+                            np.moveaxis(want, 0, -1), (2, 3, 4))
 
 
 def test_features8_auto_f32_within_the_design_budget():
@@ -168,15 +189,14 @@ def test_hessian_eig_f32_as_accurate_as_ife_tpu(shape):
     # sqrt(ulp) split would only compare two implementations' rounding luck
     img = np.random.default_rng(6).standard_normal(shape) * 200.0 - 600.0
     want = np.asarray(JF.hessian_eig_features(jnp.asarray(img), SPACING))
-    j32 = _errors(np.asarray(JF.hessian_eig_features(
-        jnp.asarray(img, jnp.float32), SPACING)), want, (0, 1, 2))
+    ref32 = np.asarray(JF.hessian_eig_features(
+        jnp.asarray(img, jnp.float32), SPACING))
     x32 = torch.from_numpy(img).float()
     from ife_tpu_torch.kernels import fused_hessian_eig
 
     for got in (TF.hessian_eig_features(x32, SPACING).numpy(),
                 np.moveaxis(fused_hessian_eig(x32, SPACING).numpy(), 0, -1)):
-        e32 = _errors(got, want, (0, 1, 2))
-        assert all(e <= max(2 * j, 1e-6) for e, j in zip(e32, j32)), (e32, j32)
+        _assert_f32_as_accurate(got, ref32, want, (0, 1, 2))
 
 
 def test_multiscale_features_match_ife_tpu():

@@ -340,6 +340,83 @@ def test_smooth_xz_kernel_matches_plain(cuda, shape, sigma):
     assert _same(num, pnum) and _same(den, pden)
 
 
+# csrc/normalized_conv.cu's passes: radii on each axis (1 - 4 below a run
+# of 8 outputs, 128 the largest), anisotropic radii; shapes thin, Z of 1,
+# 2, 5, 127, 513, one voxel over a z chunk (1025) and past the 29056 that
+# bounded the old z pass, one voxel over the x / y tile of 128
+NC_RADII = [1, 2, 4, 11, 14, 22, 28, 64, 128]
+NC_ANISO = [(28, 14, 22), (128, 1, 64), (2, 64, 11), (14, 28, 128)]
+NC_SHAPES = [(7, 9, 1), (9, 7, 2), (6, 5, 5), (5, 6, 127), (3, 4, 513),
+             (2, 3, 1025), (1, 2, 30001), (129, 3, 33), (3, 129, 33)]
+
+
+def _radii_spacing(radii):
+    """The spacing at which sigma 1 has these x / y / z radii."""
+    return tuple(4.5 / (r - 0.5) for r in radii)
+
+
+def _assert_nc_entries(img, m, sigma, sp):
+    """The four entries on csrc/normalized_conv.cu equal their twins to the
+    bit (NaN of 0/0 included), and the tiled entry the untiled kernel."""
+    got = K.fused_normalized_conv_sweep(img, m, sigma, sp)
+    assert _same(got, K.normalized_conv_plain(img, m, sigma, sp))
+    for n_tiles in (1, 2, 3):
+        assert _same(K.fused_normalized_conv_sweep_tiled(
+            img, m, sigma, sp, n_tiles=n_tiles), got)
+    for kern, plain in ((K.fused_smooth_yz, K.smooth_yz_plain),
+                        (K.fused_smooth_xz, K.smooth_xz_plain)):
+        num, den = kern(img, m, sigma, sp)
+        pnum, pden = plain(img, m, sigma, sp)
+        assert _same(num, pnum) and _same(den, pden), kern.__name__
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+@pytest.mark.parametrize("r", NC_RADII)
+def test_nc_kernels_match_plain_at_each_radius(cuda, axis, r):
+    img, mask = _inputs((37, 35, 33), cuda)
+    radii = tuple(r if a == axis else 2 for a in range(3))
+    _assert_nc_entries(img, mask, 1.0, _radii_spacing(radii))
+
+
+@pytest.mark.parametrize("radii", NC_ANISO + [None])
+def test_nc_kernels_match_plain_anisotropic_and_sigma_0(cuda, radii):
+    img, mask = _inputs((37, 35, 33), cuda)
+    if radii is None:  # sigma 0: one tap on every axis
+        _assert_nc_entries(img, mask, 0.0, SPACING)
+    else:
+        _assert_nc_entries(img, mask, 1.0, _radii_spacing(radii))
+
+
+@pytest.mark.parametrize("shape", NC_SHAPES)
+def test_nc_kernels_match_plain_on_thin_and_tile_edge_shapes(cuda, shape):
+    img, mask = _inputs(shape, cuda)
+    for sigma, sp in ((4.8, (0.78, 0.78, 1.0)), (0.6, (0.78, 0.78, 1.0)),
+                      (1.0, _radii_spacing((128, 64, 11)))):
+        _assert_nc_entries(img, mask, sigma, sp)
+
+
+@pytest.mark.parametrize("kind", ["empty", "octant", "ones", "nan_inf"])
+def test_nc_kernels_match_plain_under_each_mask(cuda, kind):
+    """An empty mask (0/0 = NaN everywhere in nc), one octant, a mask of
+    ones, and an image with NaN and +-inf where the sphere is 0."""
+    img, mask = _inputs((40, 36, 33), cuda)
+    if kind == "empty":
+        mask = torch.zeros_like(mask)
+    elif kind == "octant":
+        mask = torch.zeros_like(mask)
+        mask[:20, :18, :17] = 1.0
+    elif kind == "ones":
+        mask = torch.ones_like(mask)
+    else:
+        off = mask == 0
+        vals = torch.tensor([float("nan"), float("inf"), -float("inf")],
+                            device=cuda)
+        img = img.clone()
+        img[off] = vals.repeat(int(off.sum()) // 3 + 1)[:int(off.sum())]
+    for sigma in (2.4, 4.8):
+        _assert_nc_entries(img, mask, sigma, (0.78, 0.78, 1.0))
+
+
 @pytest.mark.parametrize("shape", SHAPES + [(40, 9, 33)])
 @pytest.mark.parametrize("sigmas", [(4.8,), (2.4, 4.8), (0.6, 2.4, 4.8),
                                     (9.0, 0.3)])

@@ -18,6 +18,7 @@ from ife_tpu.core.volume import synthetic_ct as j_synthetic_ct
 from ife_tpu.kernels import fused as JF
 from ife_tpu_torch import kernels as K
 from ife_tpu_torch.kernels import _build
+from ife_tpu_torch.ops.eigen import tie_sorted_eigenvalues
 
 torch.set_num_threads(1)
 
@@ -39,6 +40,14 @@ def _assert_features(got, want, eig, tol=TOL):
     gs = np.sort(np.stack([got[i] for i in eig]), 0)
     ws = np.sort(np.stack([want[i] for i in eig]), 0)
     assert np.abs(gs - ws).max() / max(np.abs(ws).max(), 1.0) <= tol
+    # and per channel outside the ties (margin 2 tol of the joint scale):
+    # an eigenvalue in another channel than the reference's fails
+    scale = max(np.abs(ws).max(), 1.0)
+    gc, wc = tie_sorted_eigenvalues(
+        [torch.from_numpy(np.array(got[i], np.float64)) for i in eig],
+        [torch.from_numpy(np.array(want[i], np.float64)) for i in eig],
+        2 * tol * scale)
+    assert max((g - w).abs().max().item() for g, w in zip(gc, wc)) <= tol * scale
     for i in range(len(want)):
         if i not in eig:
             err = np.abs(got[i] - want[i]).max() / max(np.abs(want[i]).max(), 1.0)

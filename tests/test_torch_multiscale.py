@@ -28,6 +28,7 @@ from ife_tpu.kernels import fused as JF
 from ife_tpu.ops import features as JO
 from ife_tpu.ops import stencil as JS
 from ife_tpu_torch import kernels as K
+from ife_tpu_torch.ops.eigen import tie_sorted_eigenvalues
 from ife_tpu_torch.ops import features as TO
 from ife_tpu_torch.ops import stencil as TS
 
@@ -51,6 +52,14 @@ def _assert_features(got, want, tol=TOL, eig=EIG):
     gs = np.sort(np.stack([got[i] for i in eig]), 0)
     ws = np.sort(np.stack([want[i] for i in eig]), 0)
     assert np.abs(gs - ws).max() / max(np.abs(ws).max(), 1.0) <= tol
+    # and per channel outside the ties (margin 2 tol of the joint scale):
+    # an eigenvalue in another channel than the reference's fails
+    scale = max(np.abs(ws).max(), 1.0)
+    gc, wc = tie_sorted_eigenvalues(
+        [torch.from_numpy(np.array(got[i], np.float64)) for i in eig],
+        [torch.from_numpy(np.array(want[i], np.float64)) for i in eig],
+        2 * tol * scale)
+    assert max((g - w).abs().max().item() for g, w in zip(gc, wc)) <= tol * scale
     for i in range(len(want)):
         if i not in eig:
             err = np.abs(got[i] - want[i]).max() / max(np.abs(want[i]).max(), 1.0)

@@ -34,6 +34,7 @@ from ife_tpu_torch import parallel as P
 from ife_tpu_torch.io import read_volume, write_volume
 from ife_tpu_torch.core.volume import Volume
 from ife_tpu_torch.kernels import fused_hessian_eig
+from ife_tpu_torch.ops.eigen import tie_sorted_eigenvalues
 from ife_tpu_torch.ops.features import (
     FEATURE_NAMES, features8, fused_features8, hessian_eig_features,
     multiscale_features,
@@ -77,9 +78,16 @@ def _rel(got, want):
 
 
 def _assert_features_last(got, want, eig, tol=TOL):
-    """Channels last; `eig` the eigenvalue channels, compared sorted."""
+    """Channels last; `eig` the eigenvalue channels, compared sorted and
+    per channel outside the ties (margin 2 tol of their joint scale)."""
     e = list(eig)
     assert _rel(np.sort(got[..., e], -1), np.sort(want[..., e], -1)) <= tol
+    scale = max(np.abs(want[..., e]).max(), 1.0)
+    gc, wc = tie_sorted_eigenvalues(
+        [torch.from_numpy(np.array(got[..., c], np.float64)) for c in e],
+        [torch.from_numpy(np.array(want[..., c], np.float64)) for c in e],
+        2 * tol * scale)
+    assert max((g - w).abs().max().item() for g, w in zip(gc, wc)) <= tol * scale
     for c in range(want.shape[-1]):
         if c not in e:
             assert _rel(got[..., c], want[..., c]) <= tol, c

@@ -7,7 +7,8 @@ kernels are instantiated for.
 
 Tolerance, as tests/test_torch_kernels.py and tests/test_torch_multiscale.py
 state it: f64 <= 1e-9 of max(max|reference|, 1) per channel, the three
-eigenvalue channels as value-sorted triples; f32 within the budget of
+eigenvalue channels per channel, as value-sorted triples only where two
+magnitudes tie within twice the tolerance; f32 within the budget of
 docs/design.md "Precision policy" (smoothed <= 1e-4 relative, derivative
 channels <= 1e-3 of their scale).
 
@@ -24,6 +25,7 @@ from ife_tpu.kernels import fused as JF
 from ife_tpu_torch import kernels as K
 from ife_tpu_torch.kernels import features8_sweep as KS
 from ife_tpu_torch.ops import features as TO
+from ife_tpu_torch.ops.eigen import tie_sorted_eigenvalues
 from ife_tpu_torch.ops.stencil import smooth_taps
 
 torch.set_num_threads(1)
@@ -48,13 +50,18 @@ def _sigma_of(rx, h=SPACING[0]):
     return sigma
 
 
-def _errors(got, want):
-    """(worst of the other channels, sorted eigenvalue triples), relative."""
-    got = [np.asarray(g, np.float64) for g in got]
-    want = [np.asarray(w, np.float64) for w in want]
-    gs = np.sort(np.stack([got[i] for i in EIG]), 0)
-    ws = np.sort(np.stack([want[i] for i in EIG]), 0)
-    e_eig = np.abs(gs - ws).max() / max(np.abs(ws).max(), 1.0)
+def _errors(got, want, tol=TOL):
+    """(worst of the other channels, worst eigenvalue channel), relative;
+    the eigenvalues against their joint scale, per channel where want's
+    adjacent |e_k| differ by more than 2 * tol of it, as value-sorted
+    triples where they tie (tie_sorted_eigenvalues)."""
+    got = [np.array(g, np.float64) for g in got]
+    want = [np.array(w, np.float64) for w in want]
+    scale = max(max(np.abs(want[i]).max() for i in EIG), 1.0)
+    gs, ws = tie_sorted_eigenvalues([torch.from_numpy(got[i]) for i in EIG],
+                                    [torch.from_numpy(want[i]) for i in EIG],
+                                    2 * tol * scale)
+    e_eig = max((g - w).abs().max().item() for g, w in zip(gs, ws)) / scale
     e_rest = max(np.abs(got[i] - want[i]).max() / max(np.abs(want[i]).max(), 1.0)
                  for i in range(8) if i not in EIG)
     return e_rest, e_eig
@@ -183,7 +190,7 @@ def test_sweep_twin_f32_within_the_precision_budget(rx):
         jnp.asarray(img64), jnp.asarray(mask), sigma, SPACING, interpret=True))
     g, w = got.numpy().astype(np.float64), want
     assert np.abs(g[0] - w[0]).max() / max(np.abs(w[0]).max(), 1.0) <= 1e-4
-    e_rest, e_eig = _errors(g, w)
+    e_rest, e_eig = _errors(g, w, 1e-3)
     assert e_rest <= 1e-3 and e_eig <= 1e-3, (e_rest, e_eig)
 
 

@@ -7,7 +7,8 @@ than the volume, prime extents, f32 accuracy).
 Tolerances: f64 twin against the f64 Pallas kernel <= 1e-9 of the channel's
 scale (both take the polynomial eigen path; the twin sums its taps in the CUDA
 kernel's order, the Pallas z pass from the centre tap outwards), eigenvalue
-channels as value-sorted triples; against the composed ops (ife_tpu's
+channels per channel, as value-sorted triples only where two magnitudes tie
+within twice the tolerance; against the composed ops (ife_tpu's
 features8, trig eigen path) <= 1e-7, ife_tpu's own bound for these kernels;
 in f32 no worse than 2.5x the composed f32 ops' own distance from the f64
 truth (floor 1e-6), ife_tpu's bound for the tap kernel.
@@ -24,6 +25,7 @@ from ife_tpu.core.volume import synthetic_ct as j_synthetic_ct
 from ife_tpu.kernels import fused as JF
 from ife_tpu.ops.features import features8 as j_features8
 from ife_tpu_torch import kernels as K
+from ife_tpu_torch.ops.eigen import tie_sorted_eigenvalues
 from ife_tpu_torch.kernels import features8_tap as tap_mod
 
 torch.set_num_threads(1)
@@ -45,16 +47,21 @@ def _inputs(shape, seed, dtype=jnp.float64):
     return img, mask
 
 
-def _errs(got, want):
+def _errs(got, want, tol=1e-9):
     """Per channel max|got - want| / max(max|want|, 1), channels last; the
-    eigenvalue channels compared as value-sorted triples."""
+    eigenvalue channels per channel where want's adjacent |e_k| differ by
+    more than 2 * tol of their joint scale, as value-sorted triples where
+    they tie (tie_sorted_eigenvalues)."""
+    scale = max(np.abs(want[..., 2:5]).max(), 1.0)
+    ge, we = tie_sorted_eigenvalues(
+        [torch.from_numpy(np.array(got[..., c], np.float64)) for c in (2, 3, 4)],
+        [torch.from_numpy(np.array(want[..., c], np.float64)) for c in (2, 3, 4)],
+        2 * tol * scale)
     out = []
     for c in range(8):
         s = max(np.abs(want[..., c]).max(), 1.0)
         if c in (2, 3, 4):
-            a = np.sort(got[..., 2:5], axis=-1)
-            b = np.sort(want[..., 2:5], axis=-1)
-            out.append(np.abs(a - b).max() / s)
+            out.append((ge[c - 2] - we[c - 2]).abs().max().item() / s)
         else:
             out.append(np.abs(got[..., c] - want[..., c]).max() / s)
     return np.array(out)
@@ -75,7 +82,7 @@ def test_twin_matches_pallas_interpret_f64(kind, shape, seed, sigma):
     assert _errs(got, want).max() <= 1e-9
     ops = np.asarray(j_features8(jnp.asarray(img), jnp.asarray(mask), sigma,
                                  SPACING))
-    assert _errs(got, ops).max() <= 1e-7
+    assert _errs(got, ops, 1e-7).max() <= 1e-7
 
 
 @pytest.mark.parametrize("kind", sorted(KINDS))
@@ -89,7 +96,12 @@ def test_twin_f32_within_the_documented_budget(kind):
     got = t_fn(torch.from_numpy(img), torch.from_numpy(mask), 1.1, SPACING)
     assert got.dtype == torch.float32
     got = got.movedim(0, -1).numpy().astype(np.float64)
-    e_got, e_xla = _errs(got, truth), _errs(xla, truth)
+    # the eigenvalues as value-sorted triples, then per channel outside the
+    # ties (margin: twice the largest error the first comparison allows)
+    e_got, e_xla = _errs(got, truth, np.inf), _errs(xla, truth, np.inf)
+    assert np.all(e_got < np.maximum(2.5 * e_xla, 1e-6)), (e_got, e_xla)
+    tol = np.maximum(2.5 * e_xla, 1e-6)[2:5].max()
+    e_got, e_xla = _errs(got, truth, tol), _errs(xla, truth, tol)
     assert np.all(e_got < np.maximum(2.5 * e_xla, 1e-6)), (e_got, e_xla)
 
 
