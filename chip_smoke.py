@@ -81,7 +81,7 @@ failing phase exits non-zero:
               under empty / one-octant / full / sphere masks and on an
               image with NaN / inf off the mask) and their SASS
               (nc_sass_check: no FFMA in the walks);
-  4. main     four paths of user entry points, the launch counters reset
+  4. main     five paths of user entry points, the launch counters reset
               before each and read after it. Features: the CLI
               (extract-features -s 0.6 2.4, hessian-features with and
               without --fused) on a 256x256x128 NIfTI, outputs checked
@@ -100,7 +100,21 @@ failing phase exits non-zero:
               multiscale_features8_fused) at 256x256x128 and 512^3, every
               scale checked against the plain f64 ops and the per-scale
               pass; sigma 4.8 once more through the tiled normalized
-              convolution and the windowed post kernel. Every kernel must
+              convolution and the windowed post kernel. Tools: the 17
+              subcommands of the ROI, image, converter and dataset tools
+              (make-bag-dense, make-bag-only-intensity,
+              generate-rois-many-regions, sample-rois, extract-labels,
+              image-browser, convert-hr2, convert-from-octave, merge-bags,
+              expected-distance, masked-image-filter, extract-masked-region,
+              extract-bounding-box, extract-slices, extract-window at orders
+              0 / 1 / 3, pad-image, resample with and without --nearest)
+              through the CLI on the 256x256x128 pair, each one's wall time;
+              the files of the device tools against the same functions on
+              the CPU (bit for bit; order-1 resampling within 1 f32 ulp);
+              resample_to_grid orders 0 and 1 at 512^3 onto a shifted 0.7 x
+              0.7 x 1.1 mm grid, card against CPU; call ms of the two
+              resamples, mask_image, relabel_mask and intensity_window at
+              512^3. Every kernel must
               have launched, features8_ys_multi exactly once per
               multiscale_features8_fused call. Sharded: on the 256x256x128
               pair the CLI extract-features / make-bag / determine-bin-edges
@@ -1544,6 +1558,249 @@ def phase_bags(tmp):
     if d > 2.0 ** -23 or s_err > 1e-5 or c_err > 5.01e-6 or not masked.any():
         raise PhaseError("bags: device and host bags disagree, a histogram "
                          "does not sum to 1, or a CSV file is off")
+    return launches
+
+
+def f32_ulps(got, want):
+    """Largest distance in f32 ulps of two f32 tensors (on the host)."""
+    def ordered(t):
+        i = t.cpu().contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((ordered(got) - ordered(want)).abs().max())
+
+
+def window_pipeline(img2d, sp, mask2d, msp, order, device):
+    """extract-window's function (resample, window, mask) on `device`."""
+    from ife_tpu_torch.ops.transform import intensity_window, resample_to_spacing_2d
+
+    res = resample_to_spacing_2d(img2d, sp, 0.25, order=order, device=device)
+    win = intensity_window(res, -500.0, 1500.0, device=device)
+    mres = resample_to_spacing_2d(mask2d.astype("float32"), msp, 0.25,
+                                  order=0, device=device)
+    return torch.where(mres > 0.5, win, torch.zeros_like(win)), res
+
+
+def phase_tools(tmp, big_img, big_mask):
+    """The 17 subcommands of the ROI, image, converter and dataset tools
+    through the CLI on the card, on the 256x256x128 pair of phase_main and
+    the files of phase_bags, counters reset first; the device tools' files
+    against the same functions on the CPU; resample_to_grid at 512^3 on the
+    card against the CPU; call ms of the device ops at 512^3. Returns the
+    counts (make-bag-dense runs the features8 dispatcher's kernels)."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from ife_tpu_torch.cli.main import main
+    from ife_tpu_torch.core.volume import Volume
+    from ife_tpu_torch.io import read_volume, write_hr2, write_octave, write_volume
+    from ife_tpu_torch.io.hist_spec import write_hist_spec
+    from ife_tpu_torch.kernels import LAUNCHES, reset_launches
+    from ife_tpu_torch.ops import transform as T
+
+    t_phase = time.perf_counter()
+    path = lambda name: os.path.join(tmp, name)  # noqa: E731
+    img = read_volume(path("img.nii.gz"))
+    mask = read_volume(path("mask.nii.gz"))
+    shape = img.shape
+    # inputs of the tools: two labels, a mask of a few hundred voxels (one
+    # ROI per voxel in make-bag-dense), an intensity spec, HR2 and Octave
+    # files, a target grid 0.7 x 0.7 x 1.1 mm shifted by a few mm
+    m = mask.numpy()
+    labels = m * (1 + (np.arange(shape[0]) >= shape[0] // 2)[:, None, None])
+    write_volume(path("labels.nii.gz"), mask.with_data(
+        torch.from_numpy(labels.astype(np.uint8))))
+    x, y, z = np.ogrid[tuple(slice(0, n) for n in shape)]
+    c = [int(f * n) for f, n in zip((0.4, 0.55, 0.47), shape)]
+    small = ((x - c[0]) ** 2 + (y - c[1]) ** 2 + (z - c[2]) ** 2) <= 16
+    write_volume(path("small.nii.gz"), mask.with_data(
+        torch.from_numpy(small.astype(np.uint8))))
+    write_hist_spec(path("ispec.txt"), [np.linspace(-1000.0, 0.0, 31)])
+    write_hr2(path("img.hr2"), img)
+    write_octave(path("small.mat"), img.with_data(img.data[:48, :40, :32]))
+    write_volume(path("target.nii.gz"), Volume(
+        torch.zeros((260, 250, 110)), spacing=(0.7, 0.7, 1.1),
+        origin=tuple(o + d for o, d in zip(img.origin, (3.0, -2.5, 4.0)))))
+    with open(path("bag_labels.csv"), "w") as f:
+        f.write("1\n0\n")
+    mid = shape[2] // 2  # the axial slice of extract-slices
+    info_argv = ["image-browser", "-i", path("img.nii.gz"), "--cmd", "info"]
+    dist_argv = ["expected-distance", "-m", path("mask.nii.gz"), "-p",
+                 path("mask.nii.gz")]
+    runs = [
+        ["make-bag-dense", "-i", path("img.nii.gz"), "-m", path("small.nii.gz"),
+         "-b", path("spec.txt"), "-s", "0.6", "2.4", "--roi-size", "5,5,5",
+         "-o", path("dense")],
+        ["make-bag-only-intensity", "-i", path("img.nii.gz"), "-m",
+         path("mask.nii.gz"), "-b", path("ispec.txt"), "-n", "50", "--seed",
+         "0", "-o", path("ibag")],
+        ["generate-rois-many-regions", "-m", path("labels.nii.gz"), "-o",
+         path("many"), "-n", "50", "--size", "9,9,9", "--seed", "0"],
+        ["sample-rois", "-i", path("img.nii.gz"), "-r", path("many_1.ROIInfo"),
+         "-o", path("samples.csv")],
+        ["extract-labels", "-l", path("labels.nii.gz"), "-r",
+         path("many_2.ROIInfo"), "--ignore", "0", "-o", path("labels.txt")],
+        info_argv,
+        ["image-browser", "-i", path("img.nii.gz"), "--cmd", "hist"],
+        ["image-browser", "-i", path("mask.nii.gz"), "--cmd", "coverage",
+         "--coverage-samples", "100"],
+        ["convert-hr2", path("img.hr2"), path("hr2.nii.gz")],
+        ["convert-from-octave", path("small.mat"), path("oct.nii.gz")],
+        ["merge-bags", "-b", path("dev.bag"), path("host.bag"), "--bag-labels",
+         path("bag_labels.csv"), "-o", path("merged.npz")],
+        dist_argv,
+        ["masked-image-filter", "-i", path("img.nii.gz"), "-m",
+         path("mask.nii.gz"), "--outside", "-1024", "-o", path("mif.nii.gz")],
+        ["extract-masked-region", "-m", path("labels.nii.gz"), "--include", "2",
+         "-o", path("emr.nii.gz")],
+        ["extract-bounding-box", "-i", path("img.nii.gz"), "-m",
+         path("small.nii.gz"), "-o", path("ebb.nii.gz")],
+        ["extract-slices", "-i", path("img.nii.gz"), "--indices", str(mid),
+         "-o", path("slc")],
+        ["extract-slices", "-i", path("mask.nii.gz"), "--indices", str(mid),
+         "-o", path("mslc")],
+        ["extract-slices", "-i", path("img.nii.gz"), "--axis", "0",
+         "--fractions", "0.5", "--window", "1", "-o", path("xslc")],
+        *(["extract-window", "-i", path(f"slc_{mid}.nii.gz"), "--mask",
+           path(f"mslc_{mid}.nii.gz"), "-b", str(b), "-o",
+           path(f"win{b}.nii.gz")] for b in (0, 1, 3)),
+        ["pad-image", "-i", path(f"slc_{mid}.nii.gz"), "--size", "300,300",
+         "--value", "-1024", "-o", path("pad.nii.gz")],
+        ["resample", "-s", path("img.nii.gz"), "-t", path("target.nii.gz"),
+         "--nearest", "--default-value", "-1024", "-o", path("rs0.nii.gz")],
+        ["resample", "-s", path("img.nii.gz"), "-t", path("target.nii.gz"),
+         "--default-value", "-1024", "-o", path("rs1.nii.gz")],
+    ]
+    names = sorted({r[0] for r in runs})
+    if len(names) != 17:
+        raise PhaseError(f"tools: {len(names)} subcommands, not 17: {names}")
+    torch.cuda.synchronize()
+    reset_launches()
+    secs, printed = [], {}
+    for argv in runs:
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = main(argv)
+        torch.cuda.synchronize()
+        if rc != 0:
+            raise PhaseError(f"CLI {argv[0]} exited {rc}")
+        secs.append(f"{argv[0]} {time.perf_counter() - t0:.2f}")
+        printed[tuple(argv)] = out.getvalue()
+    launches = dict(LAUNCHES)
+    card = card_line()
+    say("tools", f"CLI wall s at {shape} ({card}): " + "; ".join(secs))
+    say("tools", f"launches {launches}")
+    missing = [k for k in dispatched_kernels((0.6, 2.4))
+               if launches.get(k, 0) < 1]
+    if missing:
+        raise PhaseError(f"make-bag-dense launched no {missing} kernel")
+    info = printed[tuple(info_argv)]
+    dist = float(printed[tuple(dist_argv)])
+    if "dtype: float32" not in info or not np.isfinite(dist) or dist <= 0:
+        raise PhaseError(f"tools: image-browser info {info!r} or "
+                         f"expected-distance {dist}")
+    n_dense = len(open(path("dense.ROIInfo")).read().splitlines())
+    dense = np.loadtxt(path("dense.bag"), delimiter=",", ndmin=2)
+    if not 100 <= n_dense == dense.shape[0] or dense.shape[1] != 16 * 32:
+        raise PhaseError(f"make-bag-dense: {n_dense} ROIs, bag {dense.shape}")
+    with np.load(path("merged.npz")) as z:
+        if z["instances"].shape != (100, 512):
+            raise PhaseError(f"merge-bags: {z['instances'].shape}")
+
+    # the device tools' files against the same functions on the CPU
+    def data(name):
+        return read_volume(path(name)).data
+
+    checks = {
+        "masked-image-filter": torch.equal(
+            data("mif.nii.gz"), T.mask_image(img.data, mask.data, -1024.0,
+                                             device="cpu")),
+        "extract-masked-region": torch.equal(
+            data("emr.nii.gz"), T.relabel_mask(torch.from_numpy(
+                labels.astype(np.uint8)), [2], device="cpu")),
+    }
+    tgt = read_volume(path("target.nii.gz"))
+    rs = {o: T.resample_to_grid(img, tgt, o, -1024.0, device="cpu")
+          for o in (0, 1)}
+    checks["resample --nearest"] = torch.equal(data("rs0.nii.gz"), rs[0].data)
+    rs_ulps = f32_ulps(data("rs1.nii.gz"), rs[1].data)
+    checks["resample"] = rs_ulps <= 1
+    slc = read_volume(path(f"slc_{mid}.nii.gz"))
+    mslc = read_volume(path(f"mslc_{mid}.nii.gz"))
+    win_ulps = {}
+    for b in (0, 1):
+        want, res_cpu = window_pipeline(slc.numpy()[..., 0], slc.spacing[:2],
+                                        mslc.numpy()[..., 0], mslc.spacing[:2],
+                                        b, "cpu")
+        got = data(f"win{b}.nii.gz")[..., 0]
+        _, res_card = window_pipeline(slc.numpy()[..., 0], slc.spacing[:2],
+                                      mslc.numpy()[..., 0], mslc.spacing[:2],
+                                      b, "cuda")
+        win_ulps[b] = f32_ulps(res_card, res_cpu)
+        differ = got != want
+        if b == 0:
+            checks[f"extract-window -b {b}"] = not bool(differ.any())
+        else:
+            # a window value may differ only where the order-1 value lies
+            # within 1e-5 of a half before rounding
+            y = (res_cpu.double() + 1250.0) / 1500.0 * 255.0
+            near = ((y - y.floor() - 0.5).abs() <= 1e-5)
+            checks[f"extract-window -b {b}"] = (
+                win_ulps[b] <= 1 and not bool((differ & ~near).any()))
+    say("tools", "files against the CPU: " + "; ".join(
+        f"{k} {'equal' if v else 'DIFFER'}" for k, v in checks.items())
+        + f"; resample order 1 within {rs_ulps} ulp, extract-window's "
+        f"resample on the card within {win_ulps} ulp of the CPU; "
+        f"make-bag-dense {n_dense} ROIs; expected distance {dist:.6g}")
+    if not all(checks.values()):
+        raise PhaseError("tools: a device tool's file differs from the CPU")
+
+    # 512^3: resample_to_grid onto a 0.7 x 0.7 x 1.1 mm grid shifted by a
+    # few mm (some outputs outside the source take cval), card against CPU;
+    # then call ms of the device ops
+    src = Volume(big_img, spacing=FULL_SPACING)
+    tgt = Volume(torch.zeros(1, device="cuda").expand(FULL), spacing=(0.7, 0.7, 1.1),
+                 origin=(3.0, -2.5, 4.0))
+    src_cpu = Volume(big_img.cpu(), spacing=FULL_SPACING)
+    full = []
+    for order in (0, 1):
+        got = T.resample_to_grid(src, tgt, order, -1024.0, device="cuda").data
+        t0 = time.perf_counter()
+        want = T.resample_to_grid(src_cpu, tgt, order, -1024.0,
+                                  device="cpu").data
+        cpu_s = time.perf_counter() - t0
+        ulps = f32_ulps(got, want)
+        outside = float((want == -1024.0).double().mean())
+        full.append(f"order {order}: {ulps} ulp from the CPU ({cpu_s:.1f} s "
+                    f"there), {outside:.3f} of outputs all cval")
+        if ulps > (1 if order else 0) or not 0 < outside < 1:
+            raise PhaseError(f"resample_to_grid order {order} at 512^3: "
+                             f"{ulps} ulp from the CPU, cval share {outside}")
+        del got, want
+    say("tools", f"512^3 resample_to_grid on the card ({card}): "
+        + "; ".join(full))
+    big_labels = (big_mask * (1 + (torch.arange(FULL[0], device="cuda")
+                                   >= FULL[0] // 2)[:, None, None])
+                  ).to(torch.uint8)
+    times = {
+        "resample_to_grid order 0": lambda: T.resample_to_grid(
+            src, tgt, 0, -1024.0, device="cuda"),
+        "resample_to_grid order 1": lambda: T.resample_to_grid(
+            src, tgt, 1, -1024.0, device="cuda"),
+        "mask_image": lambda: T.mask_image(big_img, big_mask, -1024.0,
+                                           device="cuda"),
+        "relabel_mask": lambda: T.relabel_mask(big_labels, [2], device="cuda"),
+        "intensity_window": lambda: T.intensity_window(big_img, device="cuda"),
+    }
+    ms = {k: cuda_ms(fn) for k, fn in times.items()}
+    say("tools", f"512^3 f32 call ms (median, min, max of 5; {card}): "
+        + "; ".join(f"{k} {v[0]:.3f} ({v[1]:.3f}-{v[2]:.3f})"
+                    for k, v in ms.items()))
+    del big_labels
+    torch.cuda.empty_cache()
+    say("tools", f"phase {time.perf_counter() - t_phase:.1f} s ({card})")
     return launches
 
 
@@ -3509,6 +3766,8 @@ def main() -> int:
             launches, img, mask = phase_main(tmp)
             phase = "bags"
             bag_launches = phase_bags(tmp)
+            phase = "tools"
+            tool_launches = phase_tools(tmp, img, mask)
             phase = "sharded"
             cli_launches = phase_sharded_cli(tmp)
         shard_launches = phase_sharded(img, mask)
@@ -3519,8 +3778,8 @@ def main() -> int:
             raise PhaseError(f"sharded path launched no {missing} kernel")
         phase = "multiscale"
         multi_launches = phase_multiscale(img, mask)
-        launches = {k: launches[k] + bag_launches[k] + multi_launches[k]
-                    + shard_launches[k] for k in launches}
+        launches = {k: launches[k] + bag_launches[k] + tool_launches[k]
+                    + multi_launches[k] + shard_launches[k] for k in launches}
         phase = "full"
         results = {}
         phase_full(img, mask, errs, results)
@@ -3555,7 +3814,7 @@ def main() -> int:
     except PhaseError as e:
         print(f"chip_smoke: phase {phase} failed: {e}", file=sys.stderr)
         return 1
-    # launches: counted in phase 4 (the four paths' runs added) and on the
+    # launches: counted in phase 4 (the five paths' runs added) and on the
     # probe path; ms, plain_ms, max_abs_err and library_ms: measured at
     # 512^3 (at REPORT_SIGMA for the smoothing kernels, YS_SIGMAS /
     # SWEEP_SIGMAS for the multi-scale ones, the config-4 shape for the

@@ -1,6 +1,5 @@
 """Subcommand implementations for the port's CLI (counterpart of
-ife_tpu/cli/commands.py): the feature subcommands, determine-bin-edges,
-make-bag and generate-rois.
+ife_tpu/cli/commands.py): every ife_tpu subcommand but convert-dicom.
 
 REGISTRY maps subcommand name -> (configure(parser), run(args), help). The
 compute runs on this process's CUDA device; IFE_PLATFORM=cpu asks for the
@@ -13,6 +12,7 @@ dealt to the processes of torch.distributed, each on its own device.
 """
 from __future__ import annotations
 
+import sys
 from typing import Dict, Tuple
 
 import numpy as np
@@ -23,6 +23,13 @@ def _triple(s: str, cast=int):
     parts = [p for p in s.replace(",", " ").split() if p]
     if len(parts) != 3:
         raise ValueError(f"expected 3 comma-separated values, got {s!r}")
+    return tuple(cast(p) for p in parts)
+
+
+def _pair(s: str, cast=int):
+    parts = [p for p in s.replace(",", " ").split() if p]
+    if len(parts) != 2:
+        raise ValueError(f"expected 2 comma-separated values, got {s!r}")
     return tuple(cast(p) for p in parts)
 
 
@@ -278,12 +285,16 @@ def _get_rois(args, mask_np, default_size=(41, 41, 41)):
     )
 
 
-def conf_make_bag(p):
+def _conf_bag_common(p):
     p.add_argument("-i", "--image", required=True)
     p.add_argument("-m", "--mask", required=True)
     p.add_argument("-b", "--bins", dest="hist_spec", required=True,
                    help="histogram spec file (bin edges)")
     p.add_argument("-o", "--out", required=True, help="output prefix")
+
+
+def conf_make_bag(p):
+    _conf_bag_common(p)
     p.add_argument("-s", "--scales", type=float, nargs="+", required=True)
     p.add_argument("-r", "--roi-file", default=None)
     p.add_argument("--roi-header", action="store_true")
@@ -343,6 +354,60 @@ def run_make_bag(args):
         write_rois(f"{args.out}.ROIInfo", rois)
     _progress(f"Wrote {bag.shape[0]} ROIs x {bag.shape[1]} columns")
     _shutdown_distributed(args)
+
+
+def conf_make_bag_dense(p):
+    _conf_bag_common(p)
+    p.add_argument("-s", "--scales", type=float, nargs="+", required=True)
+    p.add_argument("--roi-size", type=_triple, default=(41, 41, 41),
+                   metavar="X,Y,Z")
+
+
+def run_make_bag_dense(args):
+    """Reference tools/MakeBagDense.cxx: every foreground voxel is an ROI
+    center (DenseROIGenerator). make_bag bins every ROI on the host, so this
+    is for small masks."""
+    from ife_tpu_torch.io import read_hist_spec, write_matrix_csv, write_rois
+    from ife_tpu_torch.roi import generate_dense_rois, make_bag
+
+    vol = _load(args.image)
+    mask = _load(args.mask)
+    edges = read_hist_spec(args.hist_spec)
+    mask_np = mask.numpy()
+    rois = generate_dense_rois(mask_np, args.roi_size)
+    bag = make_bag(vol.numpy(), mask_np, args.scales, edges, rois,
+                   spacing=vol.spacing)
+    write_matrix_csv(f"{args.out}.bag", bag)
+    write_rois(f"{args.out}.ROIInfo", rois)
+    _progress(f"Wrote {bag.shape[0]} ROIs x {bag.shape[1]} columns")
+
+
+def conf_make_bag_only_intensity(p):
+    _conf_bag_common(p)
+    p.add_argument("-r", "--roi-file", default=None)
+    p.add_argument("--roi-header", action="store_true")
+    p.add_argument("-n", "--num-rois", type=int, default=50)
+    p.add_argument("--roi-size", type=_triple, default=(41, 41, 41),
+                   metavar="X,Y,Z")
+    p.add_argument("--seed", type=int, default=None)
+
+
+def run_make_bag_only_intensity(args):
+    """Reference tools/MakeBagOnlyIntensity.cxx: raw intensity, single
+    histogram (check at :326-330); host numpy, as in ife_tpu."""
+    from ife_tpu_torch.io import read_hist_spec, write_matrix_csv, write_rois
+    from ife_tpu_torch.roi.bag import make_bag_intensity
+
+    vol = _load(args.image)
+    mask = _load(args.mask)
+    edges = read_hist_spec(args.hist_spec)
+    if len(edges) != 1:
+        raise ValueError("intensity bags use exactly one histogram row")
+    mask_np = mask.numpy()
+    rois = _get_rois(args, mask_np)
+    bag = make_bag_intensity(vol.numpy(), mask_np, edges[0], rois)
+    write_matrix_csv(f"{args.out}.bag", bag)
+    write_rois(f"{args.out}.ROIInfo", rois)
 
 
 def conf_determine_bin_edges(p):
@@ -498,13 +563,416 @@ def run_generate_rois(args):
     write_rois(args.out, rois)
 
 
+def conf_generate_rois_many_regions(p):
+    p.add_argument("-m", "--mask", required=True)
+    p.add_argument("-o", "--out", required=True, help="output prefix")
+    p.add_argument("-n", "--num-rois", type=int, default=50)
+    p.add_argument("--size", type=_triple, default=(53, 53, 41), metavar="X,Y,Z")
+    p.add_argument("--labels", type=int, nargs="+", default=None,
+                   help="default: every nonzero label present")
+    p.add_argument("--seed", type=int, default=None)
+
+
+def run_generate_rois_many_regions(args):
+    """Reference tools/GenerateROIsManyRegions.cxx:151-176: one ROI file
+    per mask label."""
+    from ife_tpu_torch.io import write_rois
+    from ife_tpu_torch.roi import generate_random_rois
+
+    m = _load(args.mask).numpy()
+    labels = args.labels or sorted(int(v) for v in np.unique(m) if v != 0)
+    for lab in labels:
+        binary = (m == lab).astype(np.uint8)
+        rois = generate_random_rois(binary, n=args.num_rois, size=args.size,
+                                    seed=args.seed)
+        write_rois(f"{args.out}_{lab}.ROIInfo", rois)
+        _progress(f"label {lab}: {len(rois)} ROIs")
+
+
+def conf_sample_rois(p):
+    p.add_argument("-i", "--image", required=True)
+    p.add_argument("-r", "--roi-file", required=True)
+    p.add_argument("-o", "--out", required=True)
+    p.add_argument("--roi-header", action="store_true")
+
+
+def run_sample_rois(args):
+    """Reference tools/SampleROIs.cxx:104-170."""
+    from ife_tpu_torch.io import read_rois, write_matrix_csv
+    from ife_tpu_torch.roi.bag import sample_rois
+
+    vol = _load(args.image)
+    rois = read_rois(args.roi_file, header=args.roi_header)
+    write_matrix_csv(args.out, sample_rois(vol.numpy(), rois))
+
+
+def conf_extract_labels(p):
+    p.add_argument("-l", "--label-image", required=True)
+    p.add_argument("-r", "--roi-file", required=True)
+    p.add_argument("-o", "--out", required=True)
+    p.add_argument("--ignore", type=int, nargs="+", default=[])
+    p.add_argument("--dominant", type=int, default=None)
+    p.add_argument("--dominant-threshold", type=float, default=0.0)
+    p.add_argument("--roi-header", action="store_true")
+
+
+def run_extract_labels(args):
+    """Reference tools/ExtractLabels.cxx:165-210."""
+    from ife_tpu_torch.io import read_rois
+    from ife_tpu_torch.roi.bag import extract_labels
+
+    vol = _load(args.label_image)
+    rois = read_rois(args.roi_file, header=args.roi_header)
+    labels = extract_labels(vol.numpy(), rois, ignore=args.ignore,
+                            dominant=args.dominant,
+                            dominant_threshold=args.dominant_threshold)
+    with open(args.out, "w") as f:
+        for lab in labels:
+            f.write(f"{lab}\n")
+
+
 # ---------------------------------------------------------------------------
-# registry (the other ife_tpu subcommands are not ported yet)
+# image utility tools (ops/transform.py: the masks, the window and the
+# resamplers on the device, the rest on the host)
+# ---------------------------------------------------------------------------
+
+def conf_masked_image_filter(p):
+    p.add_argument("-i", "--image", required=True)
+    p.add_argument("-m", "--mask", required=True)
+    p.add_argument("-o", "--out", required=True)
+    p.add_argument("--outside", type=float, default=0.0)
+
+
+def run_masked_image_filter(args):
+    """Reference tools/MaskedImageFilter.cxx: the image's dtype is kept."""
+    from ife_tpu_torch.ops.transform import mask_image
+
+    vol = _load(args.image)
+    mask = _load(args.mask)
+    out = mask_image(vol.data, mask.data, args.outside, device=_device())
+    _save(args.out, vol.with_data(out.cpu()))
+
+
+def conf_extract_masked_region(p):
+    p.add_argument("-m", "--mask", required=True)
+    p.add_argument("-o", "--out", required=True)
+    p.add_argument("--include", type=int, nargs="+", required=True)
+    p.add_argument("--inside", type=int, default=1)
+    p.add_argument("--outside", type=int, default=0)
+
+
+def run_extract_masked_region(args):
+    """Reference tools/ExtractMaskedRegion.cxx: the mask's dtype is kept."""
+    from ife_tpu_torch.ops.transform import relabel_mask
+
+    mask = _load(args.mask)
+    out = relabel_mask(mask.data, args.include, args.inside, args.outside,
+                       device=_device())
+    _save(args.out, mask.with_data(out.cpu()))
+
+
+def conf_extract_bounding_box(p):
+    p.add_argument("-i", "--image", required=True)
+    p.add_argument("-m", "--mask", required=True)
+    p.add_argument("-o", "--out", required=True)
+
+
+def run_extract_bounding_box(args):
+    """Reference tools/ExtractBoundingBox.cxx."""
+    from ife_tpu_torch.ops.transform import crop_to_bounding_box
+
+    vol = _load(args.image)
+    mask = _load(args.mask)
+    _save(args.out, crop_to_bounding_box(vol, mask.numpy()))
+
+
+def conf_extract_slices(p):
+    p.add_argument("-i", "--image", required=True)
+    p.add_argument("-o", "--out", required=True, help="output prefix")
+    p.add_argument("--axis", type=int, default=2, choices=(0, 1, 2))
+    p.add_argument("--indices", type=int, nargs="*", default=[])
+    p.add_argument("--fractions", type=float, nargs="*", default=[])
+    p.add_argument("--window", type=int, default=0)
+    p.add_argument("--stride", type=int, default=1)
+    p.add_argument("--mask", default=None,
+                   help="crop to this mask's bounding box first")
+    p.add_argument("--no-flip", action="store_true")
+
+
+def run_extract_slices(args):
+    """Reference tools/ExtractSlices.cxx."""
+    from ife_tpu_torch.core.volume import Volume
+    from ife_tpu_torch.ops.transform import (
+        crop_to_bounding_box,
+        extract_slice,
+        slice_indices,
+    )
+
+    vol = _load(args.image)
+    if args.mask:
+        vol = crop_to_bounding_box(vol, _load(args.mask).numpy())
+    n = vol.shape[args.axis]
+    idxs = slice_indices(n, args.indices, args.fractions, args.window,
+                         args.stride)
+    if not idxs:
+        raise ValueError("no slice indices selected")
+    data = vol.numpy()
+    sp = [vol.spacing[d] for d in range(3) if d != args.axis]
+    for i in idxs:
+        # a flipped slice is a negative-stride view
+        plane = np.ascontiguousarray(
+            extract_slice(data, args.axis, i, flip=not args.no_flip))
+        _save(f"{args.out}_{i}.nii.gz",
+              Volume.from_numpy(plane[..., None], spacing=(*sp, 1.0)))
+
+
+def conf_extract_window(p):
+    p.add_argument("-i", "--image", required=True)
+    p.add_argument("-o", "--out", required=True)
+    p.add_argument("--level", type=float, default=-500.0)
+    p.add_argument("--width", type=float, default=1500.0)
+    p.add_argument("--out-spacing", type=float, default=0.25)
+    p.add_argument("--mask", default=None)
+    p.add_argument("-b", "--spline-order", type=int, default=3,
+                   choices=range(6), metavar="[0-5]",
+                   help="B-spline interpolation order "
+                   "(reference ExtractWindow.cxx:43, default 3)")
+
+
+def run_extract_window(args):
+    """Reference tools/ExtractWindow.cxx: resample 2D to isotropic spacing
+    (B-spline interpolation, ceil sizing, NN extrapolation; the mask rides
+    nearest-neighbor, :230-232) then window to uint8."""
+    from ife_tpu_torch.core.volume import Volume
+    from ife_tpu_torch.ops.transform import (
+        intensity_window,
+        resample_to_spacing_2d,
+    )
+
+    dev = _device()
+    vol = _load(args.image)
+    data = vol.numpy()
+    if data.ndim == 3 and data.shape[2] == 1:
+        data = data[..., 0]
+    if data.ndim != 2:
+        raise ValueError("extract-window expects a 2D image")
+    res = resample_to_spacing_2d(data, vol.spacing[:2], args.out_spacing,
+                                 order=args.spline_order, device=dev)
+    win = intensity_window(res, args.level, args.width, device=dev)
+    if args.mask:
+        mask = _load(args.mask)
+        m = mask.numpy()
+        if m.ndim == 3:
+            m = m[..., 0]
+        # mask rides nearest-neighbor so it stays binary (reference
+        # ExtractWindow.cxx:230-232)
+        mres = resample_to_spacing_2d(m.astype(np.float32),
+                                      mask.spacing[:2], args.out_spacing,
+                                      order=0, device=dev)
+        win = torch.where(mres > 0.5, win, torch.zeros((), dtype=win.dtype,
+                                                       device=dev))
+    _save(args.out, Volume(win.cpu()[..., None],
+                           spacing=(args.out_spacing, args.out_spacing, 1.0)))
+
+
+def conf_pad_image(p):
+    p.add_argument("-i", "--image", required=True)
+    p.add_argument("-o", "--out", required=True)
+    p.add_argument("--size", type=_pair, required=True, metavar="X,Y")
+    p.add_argument("--value", type=float, default=0.0)
+
+
+def run_pad_image(args):
+    """Reference tools/PadImage.cxx:60-76."""
+    from ife_tpu_torch.core.volume import Volume
+    from ife_tpu_torch.ops.transform import pad_to_size_2d
+
+    vol = _load(args.image)
+    data = vol.numpy()
+    if data.ndim == 3 and data.shape[2] == 1:
+        data = data[..., 0]
+    out = pad_to_size_2d(data, args.size, args.value)
+    _save(args.out, Volume.from_numpy(out[..., None], spacing=vol.spacing))
+
+
+def conf_resample(p):
+    p.add_argument("-s", "--source", required=True)
+    p.add_argument("-t", "--target", required=True)
+    p.add_argument("-o", "--out", required=True)
+    p.add_argument("--nearest", action="store_true",
+                   help="nearest-neighbor interpolation (for masks)")
+    p.add_argument("--default-value", type=float, default=0.0)
+
+
+def run_resample(args):
+    """Reference tools/Resample.cxx:83-103."""
+    from ife_tpu_torch.ops.transform import resample_to_grid
+
+    src = _load(args.source)
+    tgt = _load(args.target)
+    out = resample_to_grid(src, tgt, order=0 if args.nearest else 1,
+                           default_value=args.default_value, device=_device())
+    _save(args.out, out)
+
+
+# ---------------------------------------------------------------------------
+# converters
+# ---------------------------------------------------------------------------
+
+def conf_convert_hr2(p):
+    p.add_argument("input")
+    p.add_argument("output")
+
+
+def run_convert_hr2(args):
+    """Reference tools/ConvertHR2.cxx:23-95."""
+    from ife_tpu_torch.io import read_hr2
+
+    _save(args.output, read_hr2(args.input))
+
+
+def conf_convert_from_octave(p):
+    p.add_argument("input")
+    p.add_argument("output")
+
+
+def run_convert_from_octave(args):
+    """Reference tools/ConvertFromOctave.cxx:56-75."""
+    from ife_tpu_torch.io import read_octave
+
+    _save(args.output, read_octave(args.input))
+
+
+# ---------------------------------------------------------------------------
+# misc
+# ---------------------------------------------------------------------------
+
+def conf_merge_bags(p):
+    p.add_argument("-b", "--bags", nargs="+", required=True,
+                   help="per-image .bag CSV files")
+    p.add_argument("-o", "--out", required=True, help="output .npz")
+    p.add_argument("--bag-labels", default=None,
+                   help="CSV: one label row per bag")
+    p.add_argument("--instance-labels", nargs="+", default=None,
+                   help="per-bag CSVs of instance labels")
+
+
+def run_merge_bags(args):
+    """Fixed MakeBaggedDataset capability (reference
+    tools/MakeBaggedDataset.cxx:73-149, dead code there)."""
+    from ife_tpu_torch.io import read_text_matrix
+    from ife_tpu_torch.roi.bagged_dataset import merge_bags, save_bagged_dataset
+
+    bag_labels = (
+        read_text_matrix(args.bag_labels) if args.bag_labels else None
+    )
+    if args.instance_labels and len(args.instance_labels) != len(args.bags):
+        raise ValueError("need one instance-label file per bag")
+    data = merge_bags(args.bags, bag_labels, args.instance_labels)
+    save_bagged_dataset(args.out, data)
+    _progress(
+        f"wrote {data['instances'].shape[0]} instances in "
+        f"{len(args.bags)} bags -> {args.out}"
+    )
+
+
+def conf_expected_distance(p):
+    p.add_argument("-m", "--mask", required=True)
+    p.add_argument("-p", "--prob", required=True,
+                   help="interest-point probability image")
+
+
+def run_expected_distance(args):
+    """Reference tools/CalculateExpectedDistanceFromCenterToInterestPoints
+    .cxx:76-79 — prints the scalar."""
+    from ife_tpu_torch.stats.distance import (
+        expected_distance_from_center_to_interest_point,
+    )
+
+    mask = _load(args.mask)
+    prob = _load(args.prob)
+    print(expected_distance_from_center_to_interest_point(
+        mask.numpy(), prob.numpy(), mask.spacing))
+
+
+def conf_image_browser(p):
+    p.add_argument("-i", "--image", required=True)
+    p.add_argument("--cmd", default=None,
+                   help="run one command non-interactively (info|hist|coverage)")
+    p.add_argument("--roi-size", type=_triple, default=(41, 41, 41),
+                   metavar="X,Y,Z")
+    p.add_argument("--coverage-samples", type=int, default=1000)
+
+
+def run_image_browser(args):
+    """Reference tools/ImageBrowser.cxx: info, unique-value histogram, and
+    Monte-Carlo ROI-coverage estimation (:24-100)."""
+    vol = _load(args.image)
+    data = vol.numpy()
+
+    def cmd_info():
+        print(f"shape: {vol.shape}")
+        print(f"spacing: {vol.spacing}")
+        print(f"origin: {vol.origin}")
+        print(f"dtype: {data.dtype}")  # numpy's name, as ife_tpu prints it
+        print(f"min/max: {data.min():g} {data.max():g}")
+
+    def cmd_hist():
+        vals, counts = np.unique(data, return_counts=True)
+        if vals.size > 64:
+            print(f"{vals.size} unique values; showing 64 quantile bins")
+            qs = np.quantile(data.reshape(-1), np.linspace(0, 1, 65))
+            hist, _ = np.histogram(data, bins=np.unique(qs))
+            for lo, hi, c in zip(qs[:-1], qs[1:], hist):
+                print(f"[{lo:g}, {hi:g}): {c}")
+        else:
+            for v, c in zip(vals, counts):
+                print(f"{v:g}: {c}")
+
+    def cmd_coverage():
+        from ife_tpu_torch.roi import generate_random_rois
+
+        binary = (data != 0).astype(np.uint8)
+        covered = np.zeros_like(binary, dtype=bool)
+        rois = generate_random_rois(binary, n=args.coverage_samples,
+                                    size=args.roi_size, seed=0)
+        for r in rois:
+            covered[r.slices()] = True
+        frac = covered[binary != 0].mean() if binary.any() else 0.0
+        print(f"coverage: {frac:.4f} with {len(rois)} ROIs of {args.roi_size}")
+
+    cmds = {"info": cmd_info, "hist": cmd_hist, "coverage": cmd_coverage}
+    if args.cmd:
+        cmds[args.cmd]()
+        return
+    print("commands: info hist coverage quit")
+    for line in sys.stdin:
+        c = line.strip()
+        if c in ("quit", "q", "exit"):
+            break
+        if c in cmds:
+            cmds[c]()
+        elif c:
+            print(f"unknown command {c!r}; commands: info hist coverage quit")
+
+
+# ---------------------------------------------------------------------------
+# registry (ife_tpu's, less convert-dicom)
 # ---------------------------------------------------------------------------
 
 REGISTRY: Dict[str, Tuple] = {
     "extract-features": (conf_extract_features, run_extract_features,
                          "8-channel multi-scale feature volumes (ExtractFeatures)"),
+    "make-bag": (conf_make_bag, run_make_bag,
+                 "per-ROI feature histogram bag CSV (MakeBag)"),
+    "make-bag-dense": (conf_make_bag_dense, run_make_bag_dense,
+                       "bag with an ROI at every foreground voxel (MakeBagDense)"),
+    "make-bag-only-intensity": (conf_make_bag_only_intensity,
+                                run_make_bag_only_intensity,
+                                "raw-intensity bag (MakeBagOnlyIntensity)"),
+    "determine-bin-edges": (conf_determine_bin_edges, run_determine_bin_edges,
+                            "equalized histogram bin edges over an image list "
+                            "(DetermineHistogramBinEdges_MultiScaleEigenvalueFeatures)"),
     "masked-normalized-convolution": (conf_masked_normalized_convolution,
                                       run_masked_normalized_convolution,
                                       "normalized Gaussian convolution (MaskedNormalizedConvolution)"),
@@ -513,11 +981,40 @@ REGISTRY: Dict[str, Tuple] = {
     "hessian-features": (conf_hessian_features, run_hessian_features,
                          "raw Hessian eigen-feature volumes "
                          "(FiniteDifference_HessianFeatures, fixed)"),
-    "make-bag": (conf_make_bag, run_make_bag,
-                 "per-ROI feature histogram bag CSV (MakeBag)"),
-    "determine-bin-edges": (conf_determine_bin_edges, run_determine_bin_edges,
-                            "equalized histogram bin edges over an image list "
-                            "(DetermineHistogramBinEdges_MultiScaleEigenvalueFeatures)"),
     "generate-rois": (conf_generate_rois, run_generate_rois,
                       "random ROI boxes from a mask (GenerateROIs)"),
+    "generate-rois-many-regions": (conf_generate_rois_many_regions,
+                                   run_generate_rois_many_regions,
+                                   "random ROIs per mask label (GenerateROIsManyRegions)"),
+    "sample-rois": (conf_sample_rois, run_sample_rois,
+                    "raw voxel matrix per ROI (SampleROIs)"),
+    "extract-labels": (conf_extract_labels, run_extract_labels,
+                       "per-ROI mode label (ExtractLabels)"),
+    "masked-image-filter": (conf_masked_image_filter, run_masked_image_filter,
+                            "mask an image (MaskedImageFilter)"),
+    "extract-masked-region": (conf_extract_masked_region,
+                              run_extract_masked_region,
+                              "relabel mask by include-set (ExtractMaskedRegion)"),
+    "extract-bounding-box": (conf_extract_bounding_box, run_extract_bounding_box,
+                             "crop to mask bounding box (ExtractBoundingBox)"),
+    "extract-slices": (conf_extract_slices, run_extract_slices,
+                       "2D slices along an axis (ExtractSlices)"),
+    "extract-window": (conf_extract_window, run_extract_window,
+                       "resample + intensity window to uint8 (ExtractWindow)"),
+    "pad-image": (conf_pad_image, run_pad_image,
+                  "centered constant pad of a 2D image (PadImage)"),
+    "resample": (conf_resample, run_resample,
+                 "resample source onto target grid (Resample)"),
+    "convert-hr2": (conf_convert_hr2, run_convert_hr2,
+                    "convert .hr2 to a standard volume (ConvertHR2)"),
+    "convert-from-octave": (conf_convert_from_octave, run_convert_from_octave,
+                            "convert Octave ASCII matrix (ConvertFromOctave)"),
+    "merge-bags": (conf_merge_bags, run_merge_bags,
+                   "merge per-image bags + labels into a bagged dataset "
+                   "(MakeBaggedDataset, fixed)"),
+    "expected-distance": (conf_expected_distance, run_expected_distance,
+                          "E[signed distance x probability] over a mask "
+                          "(CalculateExpectedDistanceFromCenterToInterestPoints)"),
+    "image-browser": (conf_image_browser, run_image_browser,
+                      "image info / histogram / ROI coverage REPL (ImageBrowser)"),
 }

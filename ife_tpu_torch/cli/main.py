@@ -1,9 +1,7 @@
 """The port's CLI entry point (counterpart of ife_tpu/cli/main.py).
 
-One subcommand per reference tool; registered so far: the feature tools
-(extract-features, hessian-features, masked-normalized-convolution,
-gradient-features), determine-bin-edges, make-bag and generate-rois. Run
-as ``python -m ife_tpu_torch <subcommand>``.
+One subcommand per reference tool: every ife_tpu subcommand but
+convert-dicom. Run as ``python -m ife_tpu_torch <subcommand>``.
 """
 from __future__ import annotations
 

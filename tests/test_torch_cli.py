@@ -1,7 +1,12 @@
 """The port's CLI against ife_tpu's on the same tiny NIfTI files: output
 files agree in f32 within the per-channel budget of docs/design.md, and the
-bag tools' hist specs, bags and ROI files agree with ife_tpu's; plus the
-package-level contracts (no JAX import, TF32 off, `python -m` entry)."""
+bag tools' hist specs, bags and ROI files agree with ife_tpu's; the other
+ROI tools, the converters, merge-bags, expected-distance and image-browser
+write the same files, arrays or text (tests/test_torch_transform.py holds
+the image tools); plus the package-level contracts (no JAX import, TF32 off,
+`python -m` entry, the registry: ife_tpu's less convert-dicom)."""
+import gzip
+import io
 import os
 import subprocess
 import sys
@@ -11,11 +16,13 @@ import pytest
 import torch
 import jax.numpy as jnp
 
+from ife_tpu.cli.commands import REGISTRY as J_REGISTRY
 from ife_tpu.cli.main import main as j_main
 from ife_tpu.core.volume import Volume as JVolume
 from ife_tpu.core.volume import sphere_mask, synthetic_ct
 from ife_tpu.io import read_volume as j_read, write_volume as j_write
-from ife_tpu.io import read_hist_spec
+from ife_tpu.io import read_hist_spec, write_hist_spec, write_hr2, write_octave
+from ife_tpu.io.text import write_matrix_csv
 from ife_tpu.ops.features import FEATURE_NAMES, features8_auto
 from ife_tpu_torch.cli import commands as TC
 from ife_tpu_torch.cli.main import main as t_main
@@ -166,10 +173,7 @@ def test_sharded_is_refused_and_only_the_slice_is_registered(workdir, capsys):
         a, b = _load_pair(d, f"whole_scale_1{name}.nii.gz",
                           f"blocks_scale_1{name}.nii.gz")
         assert _rel(b, a) < F32_BUDGET[name], name
-    assert set(TC.REGISTRY) == {"extract-features", "hessian-features",
-                                "masked-normalized-convolution",
-                                "gradient-features", "determine-bin-edges",
-                                "make-bag", "generate-rois"}
+    assert set(TC.REGISTRY) == set(J_REGISTRY) - {"convert-dicom"}
 
 
 def test_python_m_entry_point_runs(workdir):
@@ -216,10 +220,10 @@ def test_tf32_is_off_after_import():
 BAG_SCALES = ("0.6", "1.2")
 
 
-def _features_f32(d, name):
+def _features_f32(d, name, mask_name="mask.nii.gz"):
     """ife_tpu's f32 features of one image at each bag scale, as its CLI
     computes them: [(X, Y, Z, 8)] per scale."""
-    vol, mask = j_read(str(d / name)), j_read(str(d / "mask.nii.gz"))
+    vol, mask = j_read(str(d / name)), j_read(str(d / mask_name))
     m = (np.asarray(mask.data) != 0).astype(np.uint8)
     return [np.asarray(features8_auto(jnp.asarray(vol.data, jnp.float32),
                                       jnp.asarray(m), float(s), vol.spacing))
@@ -276,15 +280,26 @@ def test_make_bag_matches_ife_tpu(workdir, bin_edges, device):
             *flag]
     _run(t_main, "make-bag", *args, "-o", d / f"t_bag{device}")
     _run(j_main, "make-bag", *args, "-o", d / f"j_bag{device}")
-    assert ((d / f"t_bag{device}.ROIInfo").read_bytes()
-            == (d / f"j_bag{device}.ROIInfo").read_bytes())
-    t_bag = np.loadtxt(d / f"t_bag{device}.bag", delimiter=",")
-    j_bag = np.loadtxt(d / f"j_bag{device}.bag", delimiter=",")
-    assert t_bag.shape == j_bag.shape == (6, 16 * 6)
+    _assert_bags_agree(d, f"t_bag{device}", f"j_bag{device}", spec,
+                       "noise.nii.gz", "mask.nii.gz", (6, 16 * 6))
+
+
+def _assert_bags_agree(d, t_prefix, j_prefix, spec, image, mask, shape):
+    """The two CLIs' <prefix>.ROIInfo equal byte for byte, and their bags
+    within the f32 per-channel budget: a voxel whose f32 feature lies within
+    the channel's budget of an edge may bin differently in the two packages;
+    every histogram without such a voxel must be equal to the bit, and the
+    others may differ by at most (such voxels) / (masked voxels) per bin."""
+    assert ((d / f"{t_prefix}.ROIInfo").read_bytes()
+            == (d / f"{j_prefix}.ROIInfo").read_bytes())
+    t_bag = np.loadtxt(d / f"{t_prefix}.bag", delimiter=",", ndmin=2)
+    j_bag = np.loadtxt(d / f"{j_prefix}.bag", delimiter=",", ndmin=2)
+    assert t_bag.shape == j_bag.shape == shape
     rois = TC._get_rois(
-        type("A", (), dict(roi_file=str(d / f"j_bag{device}.ROIInfo")))(), None)
-    feats, m = _features_f32(d, "noise.nii.gz")
+        type("A", (), dict(roi_file=str(d / f"{j_prefix}.ROIInfo")))(), None)
+    feats, m = _features_f32(d, image, mask)
     edges = read_hist_spec(str(spec))
+    n_bins = edges[0].size + 1
     n_exact = 0
     for r, roi in enumerate(rois):
         inside = m[roi.slices()] != 0
@@ -294,7 +309,8 @@ def test_make_bag_matches_ife_tpu(workdir, bin_edges, device):
             scale = max(np.abs(feats[i][..., k][m != 0]).max(), 1.0)
             tol = F32_BUDGET[FEATURE_NAMES[k]] * scale
             near = int((np.abs(v[:, None] - e[None, :]) <= tol).any(1).sum())
-            got, want = t_bag[r, h * 6:(h + 1) * 6], j_bag[r, h * 6:(h + 1) * 6]
+            cols = slice(h * n_bins, (h + 1) * n_bins)
+            got, want = t_bag[r, cols], j_bag[r, cols]
             if near == 0:
                 n_exact += 1
                 np.testing.assert_array_equal(got, want, err_msg=f"roi {r} hist {h}")
@@ -319,6 +335,7 @@ def test_host_modules_import_without_jax():
     code = (
         "import sys\n"
         "import ife_tpu_torch.roi, ife_tpu_torch.stats, ife_tpu_torch.io\n"
+        "import ife_tpu_torch.roi.bagged_dataset, ife_tpu_torch.stats.distance\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'ife_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -327,3 +344,219 @@ def test_host_modules_import_without_jax():
                          capture_output=True, text=True, timeout=300,
                          env={**os.environ, "PYTHONPATH": REPO})
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+# ---------------------------------------------------------------------------
+# the other bag / ROI tools, the converters, merge-bags, expected-distance
+# and image-browser: the same files, text or arrays as ife_tpu's CLI
+# ---------------------------------------------------------------------------
+
+def _both(d, name, *args, out):
+    """Run `name` in both CLIs, each with its own -o; returns the paths."""
+    _run(t_main, name, *args, "-o", d / f"t_{out}")
+    _run(j_main, name, *args, "-o", d / f"j_{out}")
+    return d / f"t_{out}", d / f"j_{out}"
+
+
+def _same_file(a, b):
+    """Byte for byte (a .gz file's content: its header holds the file's
+    name and time)."""
+    read = gzip.open if str(a).endswith(".gz") else open
+    with read(a, "rb") as fa, read(b, "rb") as fb:
+        got = fa.read()
+        assert got and got == fb.read(), (a, b)
+
+
+@pytest.fixture(scope="module")
+def small_mask(workdir):
+    """A mask of a few hundred voxels: make-bag-dense makes one ROI per
+    foreground voxel."""
+    m = np.asarray(sphere_mask(SHAPE, 0.3).data).astype(np.uint8)
+    j_write(str(workdir / "small_mask.nii.gz"),
+            JVolume(jnp.asarray(m), spacing=SPACING))
+    assert 100 <= int(m.sum()) <= 600
+    return "small_mask.nii.gz"
+
+
+def test_make_bag_dense_matches_ife_tpu(workdir, bin_edges, small_mask):
+    d = workdir
+    _, spec = bin_edges
+    t, _ = _both(d, "make-bag-dense", "-i", d / "noise.nii.gz", "-m",
+                 d / small_mask, "-b", spec, "-s", *BAG_SCALES,
+                 "--roi-size", "3,3,3", out="dense")
+    n = len((d / "j_dense.ROIInfo").read_text().splitlines())
+    assert n > 50
+    _assert_bags_agree(d, "t_dense", "j_dense", spec, "noise.nii.gz",
+                       small_mask, (n, 16 * 6))
+
+
+@pytest.mark.parametrize("rois", ["seed", "file"])
+def test_make_bag_only_intensity_matches_ife_tpu(workdir, rois):
+    d = workdir
+    write_hist_spec(str(d / "int_spec.txt"), [np.array([-900.0, -700.0,
+                                                        -500.0, -300.0])])
+    if rois == "seed":
+        src = ["-n", "9", "--roi-size", "5,4,3", "--seed", "4"]
+    else:
+        _run(j_main, "generate-rois", "-m", d / "mask.nii.gz", "-o",
+             d / "int.roi", "-n", "5", "--size", "3,5,4", "--seed", "1")
+        src = ["-r", d / "int.roi"]
+    _both(d, "make-bag-only-intensity", "-i", d / "img.nii.gz", "-m",
+          d / "mask.nii.gz", "-b", d / "int_spec.txt", *src, out=f"int_{rois}")
+    for ext in (".bag", ".ROIInfo"):
+        _same_file(d / f"t_int_{rois}{ext}", d / f"j_int_{rois}{ext}")
+    bag = np.loadtxt(d / f"t_int_{rois}.bag", delimiter=",", ndmin=2)
+    assert bag.shape[1] == 5 and np.allclose(bag.sum(1), 1.0)
+
+
+def test_make_bag_only_intensity_refuses_a_multi_row_spec(workdir, bin_edges):
+    d = workdir
+    _, spec = bin_edges
+    argv = ["make-bag-only-intensity", "-i", str(d / "img.nii.gz"), "-m",
+            str(d / "mask.nii.gz"), "-b", str(spec), "-o", str(d / "no")]
+    assert t_main(argv) == j_main(argv) == 1
+
+
+@pytest.mark.parametrize("labels", [[], ["--labels", "2"]])
+def test_generate_rois_many_regions_matches_ife_tpu(workdir, labels):
+    d = workdir
+    tag = "".join(labels[1:]) or "all"
+    _both(d, "generate-rois-many-regions", "-m", d / "mask.nii.gz", "-n",
+          "6", "--size", "3,4,5", "--seed", "2", *labels, out=f"many{tag}")
+    want = sorted(p.name[2:] for p in d.glob(f"j_many{tag}_*.ROIInfo"))
+    assert want == ([f"many{tag}_2.ROIInfo"] if labels else
+                    [f"many{tag}_1.ROIInfo", f"many{tag}_2.ROIInfo"])
+    assert sorted(p.name[2:] for p in d.glob(f"t_many{tag}_*.ROIInfo")) == want
+    for name in want:
+        _same_file(d / f"t_{name}", d / f"j_{name}")
+
+
+@pytest.fixture(scope="module")
+def roi_file(workdir):
+    _run(j_main, "generate-rois", "-m", workdir / "mask.nii.gz", "-o",
+         workdir / "same.roi", "-n", "7", "--size", "5,3,4", "--seed", "8")
+    return workdir / "same.roi"
+
+
+def test_sample_rois_matches_ife_tpu(workdir, roi_file):
+    d = workdir
+    _both(d, "sample-rois", "-i", d / "img.nii.gz", "-r", roi_file,
+          out="samples.csv")
+    _same_file(d / "t_samples.csv", d / "j_samples.csv")
+    assert len((d / "t_samples.csv").read_text().splitlines()) == 7
+
+
+@pytest.mark.parametrize("flags", [[], ["--ignore", "0"],
+                                   ["--ignore", "1", "--dominant", "2",
+                                    "--dominant-threshold", "0.3"]])
+def test_extract_labels_matches_ife_tpu(workdir, roi_file, flags):
+    d = workdir
+    tag = "_".join(flags).replace("-", "").replace(".", "")
+    _both(d, "extract-labels", "-l", d / "mask.nii.gz", "-r", roi_file, *flags,
+          out=f"labels{tag}.txt")
+    _same_file(d / f"t_labels{tag}.txt", d / f"j_labels{tag}.txt")
+
+
+@pytest.mark.parametrize("fmt", ["hr2", "octave"])
+def test_converters_match_ife_tpu(workdir, fmt):
+    d = workdir
+    vol = j_read(str(d / "noise.nii.gz"))
+    if fmt == "hr2":
+        src, name = d / "noise.hr2", "convert-hr2"
+        write_hr2(str(src), vol)
+    else:
+        src, name = d / "noise.mat", "convert-from-octave"
+        write_octave(str(src), JVolume(jnp.asarray(vol.data)[:7, :6, :5]))
+    _run(t_main, name, src, d / f"t_conv_{fmt}.nii.gz")
+    _run(j_main, name, src, d / f"j_conv_{fmt}.nii.gz")
+    _same_file(d / f"t_conv_{fmt}.nii.gz", d / f"j_conv_{fmt}.nii.gz")
+
+
+def test_merge_bags_matches_ife_tpu(workdir):
+    from ife_tpu_torch.roi.bagged_dataset import load_bagged_dataset
+
+    d = workdir
+    rng = np.random.default_rng(21)
+    bags, inst = [], []
+    for b, n in enumerate((4, 2, 5)):
+        bags.append(d / f"mb{b}.bag")
+        write_matrix_csv(str(bags[-1]), rng.uniform(size=(n, 6)))
+        inst.append(d / f"mb{b}.lab")
+        write_matrix_csv(str(inst[-1]), rng.integers(0, 3, (n, 1)))
+    write_matrix_csv(str(d / "mb.lab"), np.array([[1.0], [0.0], [1.0]]))
+    _both(d, "merge-bags", "-b", *bags, "--bag-labels", d / "mb.lab",
+          "--instance-labels", *inst, out="merged.npz")
+    t = load_bagged_dataset(str(d / "t_merged.npz"))
+    with np.load(d / "j_merged.npz", allow_pickle=False) as z:
+        j = {k: z[k] for k in z.files}
+    assert sorted(t) == sorted(j) == ["bag_index", "bag_labels", "bag_names",
+                                      "instance_labels", "instances"]
+    for k in j:
+        assert t[k].dtype == j[k].dtype, k
+        np.testing.assert_array_equal(t[k], j[k], err_msg=k)
+    assert t["instances"].shape == (11, 6)
+
+
+def test_merge_bags_refuses_mismatched_labels(workdir):
+    d = workdir
+    write_matrix_csv(str(d / "mb_one.bag"), np.ones((3, 2)))
+    argv = ["merge-bags", "-b", str(d / "mb_one.bag"), "-o", str(d / "x.npz"),
+            "--instance-labels", str(d / "mb_one.bag"), str(d / "mb_one.bag")]
+    assert t_main(argv) == j_main(argv) == 1
+
+
+def _stdout(main, capsys, *argv):
+    capsys.readouterr()
+    _run(main, *argv)
+    return capsys.readouterr().out
+
+
+@pytest.mark.parametrize("mask", ["mask.nii.gz", "empty.nii.gz"])
+def test_expected_distance_prints_what_ife_tpu_prints(workdir, capsys, mask):
+    d = workdir
+    if mask == "empty.nii.gz":
+        j_write(str(d / mask), JVolume(jnp.zeros(SHAPE, jnp.uint8),
+                                       spacing=SPACING))
+    argv = ["expected-distance", "-m", d / mask, "-p", d / "cert.nii.gz"]
+    got = _stdout(t_main, capsys, *argv)
+    assert got == _stdout(j_main, capsys, *argv)
+    assert float(got) != 0.0 or mask == "empty.nii.gz"
+
+
+def test_distance_module_needs_scipy(monkeypatch):
+    # scipy is imported at the top, as in ife_tpu: without it the module
+    # raises ImportError on import, never a silent other answer
+    import importlib
+
+    monkeypatch.setitem(sys.modules, "scipy", None)
+    monkeypatch.delitem(sys.modules, "ife_tpu_torch.stats.distance",
+                        raising=False)
+    with pytest.raises(ImportError):
+        importlib.import_module("ife_tpu_torch.stats.distance")
+
+
+@pytest.mark.parametrize("image,cmd", [("img.nii.gz", "info"),
+                                       ("img.nii.gz", "hist"),
+                                       ("mask.nii.gz", "hist"),
+                                       ("mask.nii.gz", "coverage")])
+def test_image_browser_prints_what_ife_tpu_prints(workdir, capsys, image, cmd):
+    argv = ["image-browser", "-i", workdir / image, "--cmd", cmd,
+            "--roi-size", "5,5,3", "--coverage-samples", "40"]
+    got = _stdout(t_main, capsys, *argv)
+    assert got == _stdout(j_main, capsys, *argv)
+    if cmd == "info":
+        assert "dtype: float32\n" in got
+
+
+def test_image_browser_repl_prints_what_ife_tpu_prints(workdir, capsys,
+                                                       monkeypatch):
+    argv = ["image-browser", "-i", workdir / "mask.nii.gz", "--roi-size",
+            "5,5,3", "--coverage-samples", "40"]
+    outs = []
+    for main in (t_main, j_main):
+        monkeypatch.setattr(sys, "stdin",
+                            io.StringIO("info\n\nbogus\nhist\ncoverage\n"
+                                        "quit\ninfo\n"))
+        outs.append(_stdout(main, capsys, *argv))
+    assert outs[0] == outs[1]
+    assert outs[0].count("shape:") == 1 and "unknown command 'bogus'" in outs[0]

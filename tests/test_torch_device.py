@@ -12,6 +12,7 @@ from ife_tpu_torch import parallel as P
 from ife_tpu_torch.cli.main import main
 from ife_tpu_torch.core.volume import Volume, sphere_mask, synthetic_ct
 from ife_tpu_torch.io import write_volume
+from ife_tpu_torch.ops import transform as T
 from ife_tpu_torch.roi import generate_random_rois
 from ife_tpu_torch.roi.bag import make_bag, make_bag_device
 
@@ -85,6 +86,49 @@ def test_bag_entry_runs_on_the_cpu_when_asked(no_card, bag_inputs, entry):
     np.testing.assert_array_equal(got, want)
 
 
+def _transform_calls():
+    """Each transform entry point that ife_tpu ran on its device, as
+    (name, call(**device_kwargs))."""
+    rng = np.random.default_rng(4)
+    img = (rng.standard_normal(SHAPE) * 300.0 - 500.0).astype(np.float32)
+    mask = rng.integers(0, 3, SHAPE).astype(np.uint8)
+    src = Volume.from_numpy(img, spacing=(1.0, 1.0, 2.0))
+    tgt = Volume.from_numpy(np.zeros((9, 8, 7), np.float32),
+                            spacing=(0.5, 1.5, 1.0), origin=(-1.0, 0, 0))
+    calls = [("mask_image", lambda **k: T.mask_image(img, mask, -7.0, **k)),
+             ("relabel_mask", lambda **k: T.relabel_mask(mask, [2], **k)),
+             ("intensity_window", lambda **k: T.intensity_window(img, **k))]
+    for order in (0, 1, 3):
+        calls.append((f"resample_to_spacing_2d order {order}",
+                      lambda order=order, **k: T.resample_to_spacing_2d(
+                          img[..., 0], (0.78, 0.9), 0.5, order=order, **k)))
+    for order in (0, 1):
+        calls.append((f"resample_to_grid order {order}",
+                      lambda order=order, **k: T.resample_to_grid(
+                          src, tgt, order=order, default_value=-1.0, **k).data))
+    return calls
+
+
+TRANSFORM_CALLS = [name for name, _ in _transform_calls()]
+
+
+@pytest.mark.parametrize("name", TRANSFORM_CALLS)
+def test_transform_entry_raises_without_a_card(no_card, name):
+    call = dict(_transform_calls())[name]
+    with pytest.raises(RuntimeError, match=NAMES_THE_VARIABLE):
+        call()
+
+
+@pytest.mark.parametrize("name", TRANSFORM_CALLS)
+def test_transform_entry_runs_on_the_cpu_when_asked(no_card, name):
+    call = dict(_transform_calls())[name]
+    want = call(device="cpu")
+    no_card.setenv("IFE_PLATFORM", "cpu")
+    got = call()
+    assert got.device == want.device == torch.device("cpu")
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
 def _free_port():
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -145,6 +189,37 @@ def test_cli_runs_on_the_cpu_when_asked(no_card, nifti_pair, name):
     no_card.setenv("IFE_PLATFORM", "cpu")
     assert main(_cli(nifti_pair, name, "out_")) == 0
     assert list(nifti_pair.glob("out_*"))
+
+
+TRANSFORM_CLI = {
+    "masked-image-filter": ["-i", "img.nii.gz", "-m", "mask.nii.gz"],
+    "extract-masked-region": ["-m", "mask.nii.gz", "--include", "1"],
+    "extract-window": ["-i", "img2d.nii.gz", "-b", "1"],
+    "resample": ["-s", "img.nii.gz", "-t", "mask.nii.gz"],
+}
+
+
+def _transform_cli(d, name, out):
+    if not (d / "img2d.nii.gz").exists():
+        img = synthetic_ct(SHAPE, seed=5).data[:, :, 3:4].contiguous()
+        write_volume(str(d / "img2d.nii.gz"), Volume(img, spacing=SPACING))
+    return [name, *(str(d / a) if a.endswith(".nii.gz") else a
+                    for a in TRANSFORM_CLI[name]), "-o", str(d / out)]
+
+
+@pytest.mark.parametrize("name", sorted(TRANSFORM_CLI))
+def test_transform_cli_fails_without_a_card_and_names_the_variable(
+        no_card, nifti_pair, capsys, name):
+    assert main(_transform_cli(nifti_pair, name, "refused.nii.gz")) == 1
+    assert "IFE_PLATFORM=cpu" in capsys.readouterr().err
+    assert not list(nifti_pair.glob("refused*"))
+
+
+@pytest.mark.parametrize("name", sorted(TRANSFORM_CLI))
+def test_transform_cli_runs_on_the_cpu_when_asked(no_card, nifti_pair, name):
+    no_card.setenv("IFE_PLATFORM", "cpu")
+    assert main(_transform_cli(nifti_pair, name, "out.nii.gz")) == 0
+    assert (nifti_pair / "out.nii.gz").exists()
 
 
 def test_no_module_picks_the_cpu_by_itself():

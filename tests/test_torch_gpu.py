@@ -1074,3 +1074,93 @@ def test_sharded_path_equals_the_single_device_kernels(cuda, axes):
     assert torch.equal(
         P.sharded_masked_histogram(xi, mi, edges, mesh),
         histogram_counts(img, edges, (mask != 0).to(torch.int32)))
+
+
+# ---------------------------------------------------------------------------
+# ops/transform.py: the entry points that ife_tpu ran on its device, on the
+# card against the same functions on the CPU (the CPU tests hold the CPU to
+# ife_tpu): bit for bit, order-1 resampling within 1 f32 ulp
+# ---------------------------------------------------------------------------
+
+def _f32_ulps(got, want):
+    """Largest distance in f32 ulps of two f32 tensors."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((ordered(got.cpu()) - ordered(want.cpu())).abs().max())
+
+
+def _transform_image(dtype=np.float32, shape=(40, 36, 33)):
+    rng = np.random.default_rng(9)
+    if dtype == np.int16:
+        return rng.integers(-1024, 1500, shape).astype(np.int16)
+    return (rng.standard_normal(shape) * 400.0 - 500.0).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int16])
+def test_mask_image_on_the_card_equals_the_cpu(cuda, dtype):
+    from ife_tpu_torch.ops import transform as T
+
+    img = _transform_image(dtype)
+    mask = np.random.default_rng(2).integers(0, 3, img.shape).astype(np.uint8)
+    got = T.mask_image(img, mask, -1024.7, device=cuda)
+    assert got.is_cuda and got.dtype == torch.from_numpy(img).dtype
+    assert torch.equal(got.cpu(), T.mask_image(img, mask, -1024.7, device="cpu"))
+
+
+def test_relabel_mask_on_the_card_equals_the_cpu(cuda):
+    from ife_tpu_torch.ops import transform as T
+
+    mask = np.random.default_rng(3).integers(0, 6, (40, 36, 33)).astype(np.uint8)
+    for include in ([1, 3], [2, 300]):
+        got = T.relabel_mask(mask, include, 5, 2, device=cuda)
+        assert got.is_cuda and got.dtype == torch.uint8
+        assert torch.equal(got.cpu(),
+                           T.relabel_mask(mask, include, 5, 2, device="cpu"))
+
+
+def test_intensity_window_on_the_card_equals_the_cpu(cuda):
+    from ife_tpu_torch.ops import transform as T
+
+    img = _transform_image()
+    img.reshape(-1)[:256] = -1250.0 + (np.arange(256) + 0.5) * 1500.0 / 255.0
+    got = T.intensity_window(img, -500.0, 1500.0, device=cuda)
+    assert got.is_cuda and got.dtype == torch.uint8
+    assert torch.equal(got.cpu(), T.intensity_window(img, device="cpu"))
+
+
+@pytest.mark.parametrize("order", [0, 1, 3])
+@pytest.mark.parametrize("spacing,out", [((1.0, 1.0), 0.5), ((0.78, 0.9), 0.25)])
+def test_resample_to_spacing_2d_on_the_card_equals_the_cpu(cuda, order,
+                                                           spacing, out):
+    from ife_tpu_torch.ops import transform as T
+
+    img = _transform_image()[..., 0]
+    got = T.resample_to_spacing_2d(img, spacing, out, order=order, device=cuda)
+    want = T.resample_to_spacing_2d(img, spacing, out, order=order, device="cpu")
+    assert got.is_cuda and got.dtype == want.dtype == torch.float32
+    if order == 1:
+        assert _f32_ulps(got, want) <= 1
+    else:
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("order", [0, 1])
+@pytest.mark.parametrize("dtype", [np.float32, np.int16])
+def test_resample_to_grid_on_the_card_equals_the_cpu(cuda, order, dtype):
+    # the grid reaches -0.5, beyond -1 and past the far face on every axis,
+    # with ties at k + 0.5 on x
+    from ife_tpu_torch.core.volume import Volume
+    from ife_tpu_torch.ops import transform as T
+
+    src = Volume.from_numpy(_transform_image(dtype), spacing=(1.0, 0.78, 2.0),
+                            origin=(0.0, 10.0, -4.0))
+    tgt = Volume.from_numpy(np.zeros((90, 52, 40), np.float32),
+                            spacing=(0.5, 0.7, 1.9), origin=(-2.0, 9.5, -7.0))
+    got = T.resample_to_grid(src, tgt, order, -1024.25, device=cuda)
+    want = T.resample_to_grid(src, tgt, order, -1024.25, device="cpu")
+    assert got.data.is_cuda and got.origin == want.origin
+    if order == 1:
+        assert _f32_ulps(got.data, want.data) <= 1
+    else:
+        assert torch.equal(got.data.cpu(), want.data)
