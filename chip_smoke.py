@@ -17,6 +17,7 @@
                                         # features8 branches alone
     python3 chip_smoke.py --probes [mode...]  # the probe phase alone (modes:
                                         # PROBE_MODES; default all)
+    python3 chip_smoke.py --dicom       # phase 4's dicom path alone
     python3 chip_smoke.py --profile     # phase 6 alone (the default run
                                         # runs it so, in a process of its
                                         # own)
@@ -31,7 +32,8 @@ time per pass). Phases, one line (or a few) each; any
 failing phase exits non-zero:
 
   1. device   torch/CUDA/nvcc versions, the card's name and power limit;
-  2. build    compile the CUDA kernels of ife_tpu_torch/csrc (timed);
+  2. build    compile the CUDA kernels of ife_tpu_torch/csrc and, beside
+              them, the native host library (g++; timed);
   3. kernels  each kernel against its plain PyTorch twin on the card, at
               (128,124,120) and (64,64,64), spacing (0.78,0.78,1.0) and
               (0.7,0.9,1.2) (the Hessian kernel's features and its reference
@@ -114,7 +116,20 @@ failing phase exits non-zero:
               resample_to_grid orders 0 and 1 at 512^3 onto a shifted 0.7 x
               0.7 x 1.1 mm grid, card against CPU; call ms of the two
               resamples, mask_image, relabel_mask and intensity_window at
-              512^3. Every kernel must
+              512^3. DICOM: three 512 x 512 x 128 int16 CT series (explicit
+              VR raw, fragmented JPEG Lossless, JPEG-LS) through the CLI
+              convert-dicom, the native decoders' counters reset first:
+              every NIfTI equal to the series' float32 volume with its
+              spacing and name, every compressed frame decoded natively
+              with no fallback, native against Python decoders on a frame
+              of each codec; then extract-features -s 1.2 on a converted
+              volume under a sphere mask, its 8 files equal to the pass on
+              the in-memory volume and that pass to its twin, to the bit;
+              the Deriche yardstick (the card's f64 FIR smoothing against
+              the IIR on a 48^3 CT at sigma 0.6 / 1.2 / 4.8); one JSON line
+              {"dicom": ...} of wall s per series (decode, gzip-9 write),
+              decode ms of a 512^2 slice, extract-features s and the host
+              make-bag s of the bag path. Every kernel must
               have launched, features8_ys_multi exactly once per
               multiscale_features8_fused call. Sharded: on the 256x256x128
               pair the CLI extract-features / make-bag / determine-bin-edges
@@ -583,12 +598,29 @@ def phase_device():
 
 
 def phase_build():
+    """The CUDA kernels and, in a thread beside them, the native host
+    library (g++); either failing to build fails the phase."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ife_tpu_torch import native_lib
     from ife_tpu_torch.kernels import _build
 
+    def native():
+        t = time.perf_counter()
+        native_lib.lib()
+        return native_lib.build(), time.perf_counter() - t
+
     t0 = time.perf_counter()
-    path = _build.build()
-    _build.lib()
-    say("build", f"{time.perf_counter() - t0:.1f} s -> {path}")
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(native)
+        path = _build.build()
+        _build.lib()
+        try:
+            host_path, host_s = host.result()
+        except RuntimeError as e:
+            raise PhaseError(f"the native library did not build: {e}") from e
+    say("build", f"{time.perf_counter() - t0:.1f} s -> {path}; native host "
+        f"library {host_s:.1f} s -> {host_path}")
     # -Xptxas -v per kernel: its (mangled) name, registers, barriers, shared
     # memory, and its own stack frame and spills
     log = path.parent / "build.log"
@@ -1473,7 +1505,8 @@ def phase_main(tmp):
 def phase_bags(tmp):
     """The bag path of user entry points on the 256x256x128 NIfTI pair of
     phase_main and a second volume (seed 3), counters reset first; returns
-    the counts."""
+    the counts, the wall seconds of make-bag without --device (host
+    binning in the native library) and host_binning_s's split."""
     import numpy as np
 
     from ife_tpu_torch.cli.main import main
@@ -1507,7 +1540,9 @@ def phase_bags(tmp):
         if main(argv) != 0:
             raise PhaseError(f"CLI {argv[0]} exited non-zero")
         torch.cuda.synchronize()
-        secs.append(f"{' '.join(argv[:2])} {time.perf_counter() - t0:.1f} s")
+        wall = time.perf_counter() - t0
+        secs.append(f"{' '.join(argv[:2])} {wall:.1f} s")
+    host_bag_s = wall  # make-bag without --device: the native binning
     launches = dict(LAUNCHES)
     say("bags", "; ".join(secs) + f"; launches {launches}")
     missing = [k for k in BAG_PATH + dispatched_kernels((0.6, 2.4))
@@ -1558,7 +1593,60 @@ def phase_bags(tmp):
     if d > 2.0 ** -23 or s_err > 1e-5 or c_err > 5.01e-6 or not masked.any():
         raise PhaseError("bags: device and host bags disagree, a histogram "
                          "does not sum to 1, or a CSV file is off")
-    return launches
+    binning = host_binning_s(vol, mask, (0.6, 2.4), spec, rois)
+    say("bags", f"make_bag's host binning alone (2 scales, {len(rois)} ROIs): "
+        f"native {binning['native_s']:.3f} s, numpy {binning['numpy_s']:.3f} s, "
+        "equal frequencies")
+    return launches, host_bag_s, binning
+
+
+def host_binning_s(vol, mask, sigmas, spec, rois):
+    """make_bag's host binning alone, on the same f32 features of the card:
+    the native library's one call for the 8 channels of a ROI against
+    numpy's branch (_roi_frequencies a channel), in turns, the faster of
+    two runs each; the frequencies must be equal. Wall seconds."""
+    import numpy as np
+
+    from ife_tpu_torch.native_lib import histogram_channels_native
+    from ife_tpu_torch.ops.features import features8_auto_channels
+    from ife_tpu_torch.roi.bag import _edges_block, _roi_frequencies
+
+    img = vol.data.cuda().float().contiguous()
+    fg = mask.data.cuda().clamp(0, 1).to(torch.uint8)
+    inside = [(mask.numpy()[r.slices()] != 0) for r in rois]
+    vox = []
+    for i, sigma in enumerate(sigmas):
+        feats = [c.cpu().numpy() for c in features8_auto_channels(
+            img, fg, float(sigma), vol.spacing)]
+        edges = _edges_block(spec, i)
+        for r, m in zip(rois, inside):
+            vox.append(([f[r.slices()][m] for f in feats], edges))
+
+    def native():
+        out = []
+        for v, edges in vox:
+            counts = histogram_channels_native(np.stack(v, axis=1), edges)
+            with np.errstate(divide="ignore", invalid="ignore"):
+                out.append(counts.astype(np.float64) / np.float64(len(v[0])))
+        return out
+
+    def numpy_branch():
+        return [np.stack([_roi_frequencies(v[k], edges[k]) for k in range(8)])
+                for v, edges in vox]
+
+    secs = {"native_s": [], "numpy_s": []}
+    for _ in range(2):
+        for key, fn in (("native_s", native), ("numpy_s", numpy_branch)):
+            t0 = time.perf_counter()
+            got = fn()
+            secs[key].append(time.perf_counter() - t0)
+            if key == "native_s":
+                a = got
+            elif not all(np.array_equal(x, y, equal_nan=True)
+                         for x, y in zip(a, got)):
+                raise PhaseError("host binning: native and numpy frequencies "
+                                 "differ")
+    return {k: min(v) for k, v in secs.items()}
 
 
 def f32_ulps(got, want):
@@ -1801,6 +1889,334 @@ def phase_tools(tmp, big_img, big_mask):
     del big_labels
     torch.cuda.empty_cache()
     say("tools", f"phase {time.perf_counter() - t_phase:.1f} s ({card})")
+    return launches
+
+
+# the dicom phase's series: a slab of a chest CT, each series in its own
+# transfer syntax; the Python encoders take seconds a 512^2 slice, so each
+# codec encodes DICOM_DISTINCT slices and the files reuse their frames
+DICOM_SHAPE = (512, 512, 128)     # rows, columns, slices of a series
+DICOM_SPACING = (0.7, 0.7, 1.25)  # row and column spacing, slice step (mm)
+DICOM_DISTINCT = 4
+DICOM_SERIES = (  # patient id (it names the file), transfer syntax
+    ("CHEST-RAW", "1.2.840.10008.1.2.1"),     # explicit VR little endian
+    ("CHEST-JLL", "1.2.840.10008.1.2.4.70"),  # JPEG Lossless SV1
+    ("CHEST-JLS", "1.2.840.10008.1.2.4.80"),  # JPEG-LS lossless
+)
+DICOM_SIGMA = 1.2
+
+
+def _dicom_element(group, el, vr, value):
+    """One explicit-VR little-endian data element."""
+    import struct
+
+    if len(value) % 2:
+        value += b"\x00" if vr in (b"OB", b"OW", b"UI") else b" "
+    if vr in (b"OB", b"OW"):
+        return struct.pack("<HH2sHI", group, el, vr, 0, len(value)) + value
+    return struct.pack("<HH2sH", group, el, vr, len(value)) + value
+
+
+def ct_stored_slices(n, rows, cols, seed):
+    """n chest-CT slices as stored int16 values (HU + 1024; slope 1,
+    intercept -1024): air, a body of soft tissue, two lungs that change
+    size along z, a vertebra, quantum noise of 20 HU."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    y, x = np.ogrid[:rows, :cols]
+    out = []
+    for i in range(n):
+        hu = np.full((rows, cols), -1000.0)
+        body = (((y - rows / 2) / (0.42 * rows)) ** 2
+                + ((x - cols / 2) / (0.47 * cols)) ** 2) <= 1
+        hu[body] = 40.0
+        ry = 0.28 * rows * (0.85 + 0.1 * i / max(n - 1, 1))
+        for cx in (0.3, 0.7):
+            lung = (((y - 0.47 * rows) / ry) ** 2
+                    + ((x - cx * cols) / (0.13 * cols)) ** 2) <= 1
+            hu[lung] = -850.0
+        hu[((y - 0.78 * rows) ** 2 + (x - cols / 2) ** 2) <= (0.05 * rows) ** 2] = 700.0
+        hu += rng.normal(0.0, 20.0, hu.shape)
+        out.append(np.clip(np.rint(hu + 1024.0), 0, 4095).astype(np.int16))
+    return out
+
+
+def dicom_slice_bytes(ts, stored, z, patient, uid, frame=None):
+    """A single-frame file of a series: `stored` (rows, cols) int16 raw, or
+    `frame` (the compressed frame) encapsulated in two fragments past an
+    empty Basic Offset Table (PS3.5 A.4)."""
+    import struct
+
+    rows, cols = stored.shape
+    el = _dicom_element
+    if frame is None:
+        pixel = el(0x7FE0, 0x0010, b"OW", stored.tobytes())
+    else:
+        cut = (len(frame) // 2) & ~1
+        items = [struct.pack("<HHI", 0xFFFE, 0xE000, 0)]
+        for frag in (frame[:cut], frame[cut:]):
+            if len(frag) % 2:
+                frag += b"\x00"
+            items.append(struct.pack("<HHI", 0xFFFE, 0xE000, len(frag)) + frag)
+        items.append(struct.pack("<HHI", 0xFFFE, 0xE0DD, 0))
+        pixel = struct.pack("<HH2sHI", 0x7FE0, 0x0010, b"OB", 0,
+                            0xFFFFFFFF) + b"".join(items)
+    body = b"".join([
+        el(0x0008, 0x0020, b"DA", b"20261017"),
+        el(0x0010, 0x0020, b"LO", patient.encode()),
+        el(0x0018, 0x0050, b"DS", f"{DICOM_SPACING[2]:g}".encode()),
+        el(0x0018, 0x1210, b"SH", b"B30f"),
+        el(0x0020, 0x000E, b"UI", uid.encode()),
+        el(0x0020, 0x0032, b"DS", f"-179.3\\-179.3\\{z:g}".encode()),
+        el(0x0028, 0x0010, b"US", struct.pack("<H", rows)),
+        el(0x0028, 0x0011, b"US", struct.pack("<H", cols)),
+        el(0x0028, 0x0030, b"DS", f"{DICOM_SPACING[0]:g}\\{DICOM_SPACING[1]:g}"
+           .encode()),
+        el(0x0028, 0x0100, b"US", struct.pack("<H", 16)),
+        el(0x0028, 0x0103, b"US", struct.pack("<H", 1)),
+        el(0x0028, 0x1052, b"DS", b"-1024"),
+        el(0x0028, 0x1053, b"DS", b"1"),
+        pixel,
+    ])
+    meta = el(0x0002, 0x0010, b"UI", ts.encode())
+    return b"\x00" * 128 + b"DICM" + meta + body
+
+
+def write_dicom_dir(root, shape, distinct, seed=0):
+    """One directory of the DICOM_SERIES, each `shape` (rows, columns,
+    slices), slice i holding distinct slice i % distinct at z = i x the
+    slice step, the files named in another order than z. Returns the
+    distinct stored slices, each series' frames (None for raw) and the
+    seconds the encoders took."""
+    from ife_tpu_torch.io.jpegll import encode_jpeg_lossless
+    from ife_tpu_torch.io.jpegls import encode_jpegls
+
+    rows, cols, n = shape
+    stored = ct_stored_slices(distinct, rows, cols, seed)
+    encoders = {"1.2.840.10008.1.2.1": None,
+                "1.2.840.10008.1.2.4.70": encode_jpeg_lossless,
+                "1.2.840.10008.1.2.4.80": encode_jpegls}
+    frames, enc_s = {}, {}
+    os.makedirs(root, exist_ok=True)
+    for k, (patient, ts) in enumerate(DICOM_SERIES):
+        enc = encoders[ts]
+        t0 = time.perf_counter()
+        frames[patient] = None if enc is None else [
+            enc(s.view("uint16"), precision=16) for s in stored]
+        enc_s[patient] = time.perf_counter() - t0
+        uid = dicom_uid(k)
+        for i in range(n):
+            j = i % distinct
+            data = dicom_slice_bytes(
+                ts, stored[j], i * DICOM_SPACING[2], patient, uid,
+                None if enc is None else frames[patient][j])
+            # file names in reverse z order: the reader sorts by position
+            with open(os.path.join(root, f"{patient}_{n - 1 - i:04d}.dcm"),
+                      "wb") as f:
+                f.write(data)
+    return stored, frames, enc_s
+
+
+def dicom_expected_volume(stored, n):
+    """The float32 (X, Y, Z) volume the series hold: stored * 1 - 1024,
+    columns on x, rows on y, slices on z."""
+    import numpy as np
+
+    planes = [stored[i % len(stored)].astype(np.float32) - 1024.0
+              for i in range(n)]
+    return np.ascontiguousarray(np.stack(planes).transpose(2, 1, 0))
+
+
+def dicom_uid(k):
+    """SeriesInstanceUID of series k of DICOM_SERIES."""
+    return f"1.2.826.0.1.3680043.2.1143.{k + 1}"
+
+
+def dicom_file_name(patient):
+    return f"{patient}_20261017_B30f_{DICOM_SPACING[2]:g}.nii.gz"
+
+
+def deriche_yardstick():
+    """The FIR smoothing of the port (ops.stencil.gaussian_smooth) on the
+    card in f64 against the reference's IIR smoother (ops.deriche, on the
+    host) on a 48^3 CT: the bounds of tests/test_torch_deriche.py. Returns
+    {sigma: [fir-iir, fir-exact, iir-exact]}, relative to the value scale."""
+    import numpy as np
+
+    from ife_tpu_torch.core.volume import synthetic_ct
+    from ife_tpu_torch.ops.deriche import deriche_gaussian_smooth
+    from ife_tpu_torch.ops.stencil import gaussian_smooth
+
+    sp = (0.78, 0.78, 1.0)
+    ct = synthetic_ct((48, 48, 48), seed=3, dtype=torch.float64)
+    x = ct.data.numpy()
+    scale = float(np.abs(x).max())
+    dev = ct.data.cuda()
+    out = {}
+    for sigma, bound in ((0.6, 3e-4), (1.2, 3e-4), (4.8, 1e-4)):
+        fir = gaussian_smooth(dev, sigma, sp)
+        exact = gaussian_smooth(dev, sigma, sp, truncate=12.0).cpu().numpy()
+        cpu = gaussian_smooth(ct.data, sigma, sp).numpy()
+        fir = fir.cpu().numpy()
+        iir = deriche_gaussian_smooth(x, sigma, sp)
+        d = [float(np.abs(fir - iir).max() / scale),
+             float(np.abs(fir - exact).max() / scale),
+             float(np.abs(iir - exact).max() / scale)]
+        card_cpu = float(np.abs(fir - cpu).max() / scale)
+        if not (d[0] < bound and d[1] < 1e-5 and d[1] < d[2]
+                and card_cpu < 1e-12):
+            raise PhaseError(f"deriche: sigma {sigma}: fir-iir {d[0]:.3g} "
+                             f"(bound {bound}), fir-exact {d[1]:.3g}, "
+                             f"iir-exact {d[2]:.3g}, card-cpu {card_cpu:.3g}")
+        out[sigma] = d + [card_cpu]
+    return out
+
+
+def phase_dicom(tmp, make_bag_s, binning):
+    """convert-dicom through the CLI on a directory of three CT series of
+    DICOM_SHAPE (raw, fragmented JPEG Lossless, JPEG-LS), the native
+    decoders' counters reset first: every file equal to the expected
+    float32 volume with its spacing and name, every compressed frame
+    decoded natively with no fallback, the native decoders equal to the
+    Python ones on a frame of each codec; then extract-features on a
+    converted volume on the card, bit-equal to the same pass on the
+    in-memory volume (and that pass to its plain twin), the launch
+    counters reset first; the Deriche yardstick. Prints the {"dicom": ...}
+    line; returns the kernel launches of extract-features."""
+    import numpy as np
+
+    from ife_tpu_torch import native_lib
+    from ife_tpu_torch.cli.main import main
+    from ife_tpu_torch.core.volume import Volume, sphere_mask
+    from ife_tpu_torch.io import read_volume, write_volume
+    from ife_tpu_torch.io.jpegll import decode_jpeg_lossless
+    from ife_tpu_torch.io.jpegls import decode_jpegls
+    from ife_tpu_torch.kernels import LAUNCHES, reset_launches
+    from ife_tpu_torch.ops.features import (FEATURE_NAMES,
+                                            features8_auto_channels,
+                                            features8_dispatch_branch)
+    from ife_tpu_torch.utils.profiling import global_metrics
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    rows, cols, n = DICOM_SHAPE
+    src, out = os.path.join(tmp, "dicom"), os.path.join(tmp, "dicom_nii")
+    t0 = time.perf_counter()
+    stored, frames, enc_s = write_dicom_dir(src, DICOM_SHAPE, DICOM_DISTINCT)
+    build_s = time.perf_counter() - t0
+
+    # the native decoders against the Python ones on a frame of each codec
+    # (these calls are not the path's: the counters are reset below)
+    decode_ms = {}
+    for patient, native, python in (
+            ("CHEST-JLL", native_lib.jll_decode_native, decode_jpeg_lossless),
+            ("CHEST-JLS", native_lib.jls_decode_native, decode_jpegls)):
+        frame = frames[patient][0]
+        t0 = time.perf_counter()
+        a = native(frame, rows, cols)
+        t1 = time.perf_counter()
+        b = python(frame)
+        t2 = time.perf_counter()
+        if not (np.array_equal(a, b) and np.array_equal(a, stored[0].view("uint16"))):
+            raise PhaseError(f"dicom: {patient}: the native decoder differs "
+                             "from the Python decoder or the slice")
+        decode_ms[patient] = {"native": (t1 - t0) * 1e3, "python": (t2 - t1) * 1e3,
+                              "frame_bytes": len(frame)}
+
+    native_lib.reset_counts()
+    first = len(global_metrics().records)
+    t0 = time.perf_counter()
+    if main(["convert-dicom", "-d", src, "-o", out]) != 0:
+        raise PhaseError("CLI convert-dicom exited non-zero")
+    convert_s = time.perf_counter() - t0
+    calls, fallbacks = dict(native_lib.CALLS), dict(native_lib.FALLBACKS)
+    if (calls["jll_decode"] != n or calls["jls_decode"] != n
+            or any(fallbacks.values())):
+        raise PhaseError(f"dicom: native decodes {calls}, fallbacks "
+                         f"{fallbacks}: want {n} of each codec, no fallback")
+    spans = {r.name: r.seconds for r in global_metrics().records[first:]}
+
+    want = dicom_expected_volume(stored, n)
+    spacing = tuple(float(np.float32(s)) for s in
+                    (DICOM_SPACING[1], DICOM_SPACING[0], DICOM_SPACING[2]))
+    names = sorted(os.listdir(out))
+    if names != sorted(dicom_file_name(p) for p, _ in DICOM_SERIES):
+        raise PhaseError(f"dicom: convert-dicom wrote {names}")
+    series = {}
+    for k, (patient, ts) in enumerate(DICOM_SERIES):
+        vol = read_volume(os.path.join(out, dicom_file_name(patient)))
+        got = vol.numpy()
+        if (got.dtype != np.float32 or not np.array_equal(got, want)
+                or vol.spacing != spacing):
+            raise PhaseError(f"dicom: {patient}: volume or spacing "
+                             f"{vol.spacing} differs from the series")
+        decode_s = spans[f"convert-dicom decode {dicom_uid(k)}"]
+        write_s = spans[f"convert-dicom write {dicom_uid(k)}"]
+        series[patient] = {
+            "transfer_syntax": ts, "wall_s": decode_s + write_s,
+            "decode_s": decode_s, "write_s": write_s,
+            "encode_s": enc_s[patient]}
+    say("dicom", f"{len(DICOM_SERIES)} series of {rows}x{cols}x{n} int16 "
+        f"(built in {build_s:.1f} s), convert-dicom {convert_s:.1f} s: "
+        + "; ".join(f"{p} decode {s['decode_s']:.2f} s, gzip-9 write "
+                    f"{s['write_s']:.2f} s" for p, s in series.items())
+        + f"; native decodes {calls}, fallbacks {fallbacks}; every file "
+        "equal to the series")
+
+    # a converted volume into the card's feature pass through the CLI
+    img_path = os.path.join(out, dicom_file_name("CHEST-JLS"))
+    vol = read_volume(img_path)
+    mask = sphere_mask(vol.shape, 0.4, dtype=torch.uint8)
+    write_volume(os.path.join(tmp, "dicom_mask.nii.gz"),
+                 Volume(mask.data, spacing=vol.spacing))
+    prefix = os.path.join(tmp, "dicom_feat")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    if main(["extract-features", "-i", img_path, "-m",
+             os.path.join(tmp, "dicom_mask.nii.gz"), "-o", prefix, "-s",
+             f"{DICOM_SIGMA:g}"]) != 0:
+        raise PhaseError("CLI extract-features exited non-zero")
+    torch.cuda.synchronize()
+    features_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    branch = features8_dispatch_branch(DICOM_SIGMA, vol.spacing, vol.shape)
+    missing = [k for k in BRANCH_KERNELS[branch] if launches[k] < 1]
+    if missing:
+        raise PhaseError(f"dicom: extract-features launched no {missing}")
+    # the in-memory pass: the series' own volume, the mask as the CLI read it
+    img = torch.from_numpy(want).cuda()
+    m = read_volume(os.path.join(tmp, "dicom_mask.nii.gz")).data.cuda()
+    mem = features8_auto_channels(img, m, DICOM_SIGMA, vol.spacing)
+    twin = branch_twin(img, m.float(), DICOM_SIGMA, vol.spacing)
+    for k, fname in enumerate(FEATURE_NAMES):
+        got = read_volume(f"{prefix}_scale_{DICOM_SIGMA:g}{fname}.nii.gz").data
+        if not (torch.equal(got, mem[k].cpu()) and torch.equal(mem[k], twin[k])):
+            raise PhaseError(f"dicom: {fname}: the CLI's file differs from the "
+                             "in-memory pass, or that pass from its twin")
+    del img, m, mem, twin
+    torch.cuda.empty_cache()
+    say("dicom", f"extract-features -s {DICOM_SIGMA:g} on {dicom_file_name('CHEST-JLS')}"
+        f" ({branch}) {features_s:.1f} s, the 8 files equal to the in-memory "
+        f"pass and its twin to the bit; launches {launches}")
+
+    deriche = deriche_yardstick()
+    say("dicom", "Deriche yardstick (48^3 f64, spacing 0.78/0.78/1.0; "
+        "fir-iir, fir-exact, iir-exact, card-cpu relative to the value "
+        "scale): " + "; ".join(f"sigma {s:g} " + " ".join(f"{v:.3g}" for v in d)
+                               for s, d in deriche.items()))
+    phase_s = time.perf_counter() - t_phase
+    print(json.dumps({"dicom": {
+        "card": card, "shape": list(DICOM_SHAPE), "series": series,
+        "convert_dicom_s": convert_s, "build_series_s": build_s,
+        "decode_ms_512": decode_ms, "native_calls": calls,
+        "native_fallbacks": fallbacks, "extract_features_s": features_s,
+        "extract_features_branch": branch, "make_bag_host_s": make_bag_s,
+        "host_binning_s": binning,
+        "deriche": {f"{s:g}": d for s, d in deriche.items()},
+        "phase_s": phase_s}}), flush=True)
+    say("dicom", f"phase {phase_s:.1f} s ({card})")
     return launches
 
 
@@ -3715,6 +4131,17 @@ def main() -> int:
             return 1
         return 0
 
+    if sys.argv[1:2] == ["--dicom"]:
+        try:
+            phase_device()
+            phase_build()
+            with tempfile.TemporaryDirectory(prefix="ife_chip_smoke_") as tmp:
+                phase_dicom(tmp, None, None)
+        except PhaseError as e:
+            print(f"chip_smoke: --dicom failed: {e}", file=sys.stderr)
+            return 1
+        return 0
+
     if sys.argv[1:2] == ["--profile"]:
         try:
             phase_build()
@@ -3765,9 +4192,11 @@ def main() -> int:
         with tempfile.TemporaryDirectory(prefix="ife_chip_smoke_") as tmp:
             launches, img, mask = phase_main(tmp)
             phase = "bags"
-            bag_launches = phase_bags(tmp)
+            bag_launches, host_bag_s, binning = phase_bags(tmp)
             phase = "tools"
             tool_launches = phase_tools(tmp, img, mask)
+            phase = "dicom"
+            dicom_launches = phase_dicom(tmp, host_bag_s, binning)
             phase = "sharded"
             cli_launches = phase_sharded_cli(tmp)
         shard_launches = phase_sharded(img, mask)
@@ -3779,7 +4208,8 @@ def main() -> int:
         phase = "multiscale"
         multi_launches = phase_multiscale(img, mask)
         launches = {k: launches[k] + bag_launches[k] + tool_launches[k]
-                    + multi_launches[k] + shard_launches[k] for k in launches}
+                    + dicom_launches[k] + multi_launches[k]
+                    + shard_launches[k] for k in launches}
         phase = "full"
         results = {}
         phase_full(img, mask, errs, results)

@@ -1,5 +1,5 @@
 """Subcommand implementations for the port's CLI (counterpart of
-ife_tpu/cli/commands.py): every ife_tpu subcommand but convert-dicom.
+ife_tpu/cli/commands.py): every ife_tpu subcommand.
 
 REGISTRY maps subcommand name -> (configure(parser), run(args), help). The
 compute runs on this process's CUDA device; IFE_PLATFORM=cpu asks for the
@@ -831,6 +831,29 @@ def run_convert_hr2(args):
     _save(args.output, read_hr2(args.input))
 
 
+def conf_convert_dicom(p):
+    p.description = (
+        "Supported transfer syntaxes: Implicit VR LE (1.2.840.10008.1.2), "
+        "Explicit VR LE (1.2.840.10008.1.2.1), RLE Lossless "
+        "(1.2.840.10008.1.2.5), JPEG Lossless SV1 (1.2.840.10008.1.2.4.70), "
+        "JPEG-LS (1.2.840.10008.1.2.4.80 / .81). Lossy JPEG and JPEG 2000 "
+        "files must be transcoded first."
+    )
+    p.add_argument("-d", "--dicom-dir", required=True)
+    p.add_argument("-o", "--out-dir", required=True)
+
+
+def run_convert_dicom(args):
+    """Reference tools/ConvertDICOM.cxx:70-131: one volume per series,
+    named from PatientID/StudyDate/ConvolutionKernel/SliceSpacing tags;
+    decoded on the host."""
+    from ife_tpu_torch.io.dicom import convert_dicom_dir
+
+    written = convert_dicom_dir(args.dicom_dir, args.out_dir)
+    for path in written:
+        _progress(f"wrote {path}")
+
+
 def conf_convert_from_octave(p):
     p.add_argument("input")
     p.add_argument("output")
@@ -957,7 +980,7 @@ def run_image_browser(args):
 
 
 # ---------------------------------------------------------------------------
-# registry (ife_tpu's, less convert-dicom)
+# registry (ife_tpu's)
 # ---------------------------------------------------------------------------
 
 REGISTRY: Dict[str, Tuple] = {
@@ -1007,6 +1030,8 @@ REGISTRY: Dict[str, Tuple] = {
                  "resample source onto target grid (Resample)"),
     "convert-hr2": (conf_convert_hr2, run_convert_hr2,
                     "convert .hr2 to a standard volume (ConvertHR2)"),
+    "convert-dicom": (conf_convert_dicom, run_convert_dicom,
+                      "convert DICOM series directory (ConvertDICOM)"),
     "convert-from-octave": (conf_convert_from_octave, run_convert_from_octave,
                             "convert Octave ASCII matrix (ConvertFromOctave)"),
     "merge-bags": (conf_merge_bags, run_merge_bags,

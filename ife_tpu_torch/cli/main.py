@@ -1,7 +1,6 @@
 """The port's CLI entry point (counterpart of ife_tpu/cli/main.py).
 
-One subcommand per reference tool: every ife_tpu subcommand but
-convert-dicom. Run as ``python -m ife_tpu_torch <subcommand>``.
+One subcommand per reference tool: every ife_tpu subcommand. Run as ``python -m ife_tpu_torch <subcommand>``.
 """
 from __future__ import annotations
 

@@ -8,9 +8,6 @@ little-endian field length of up to 4 non-zero bytes terminated early by a
 zero byte (HR2Reader.cxx:211-222), then the field payload. The ImageData
 tag ends the header; its payload is a zlib stream of float32 or int8
 voxels, x fastest.
-
-ife_tpu's optional native (C++ threaded zlib) read path is not carried
-over; this is its pure-Python path, which reads the same files.
 """
 from __future__ import annotations
 
@@ -75,7 +72,18 @@ def _write_field_length(n: int) -> bytes:
     return out
 
 
-def read_hr2(path: str) -> Volume:
+def read_hr2(path: str, native: bool = True) -> Volume:
+    if native:
+        # the native path (zlib in C++, ife_tpu_torch/native_lib.py); a
+        # library that cannot be built raises
+        from ife_tpu_torch import native_lib
+
+        try:
+            data, spacing, origin = native_lib.hr2_read_native(path)
+        except ValueError:
+            pass  # let the pure-Python path produce the error message
+        else:
+            return Volume.from_numpy(data, spacing=spacing, origin=origin)
     with open(path, "rb") as f:
         magic = f.read(3)
         if not (magic[:2] == b"HR" and magic[2:3] != b"3"):

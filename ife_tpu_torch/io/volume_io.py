@@ -1,8 +1,9 @@
 """Format-dispatching volume read/write (counterpart of
-ife_tpu/io/volume_io.py, without the DICOM path, which is not ported yet).
+ife_tpu/io/volume_io.py).
 
 NIfTI (.nii/.nii.gz) is the workhorse; HR2 and Octave cover the conversion
-formats; .npy holds a raw array.
+formats; .npy holds a raw array. DICOM series go through the from-scratch
+parser of io/dicom.py (the convert-dicom CLI).
 """
 from __future__ import annotations
 

@@ -7,8 +7,9 @@ histIdx = scale*8 + feature; write frequencies into bag row j at column
 offset histIdx * histSize.
 
 Two forms, as in ife_tpu:
-  * make_bag bins on the host (numpy searchsorted/bincount over each ROI's
-    masked voxels) from feature volumes computed on the device;
+  * make_bag bins on the host from feature volumes computed on the device:
+    each ROI's masked f32 voxels, all 8 channels in one threaded call of the
+    native library (numpy searchsorted/bincount for other dtypes);
   * make_bag_device bins on the device: one histogram_boxes call per scale
     and ROI size class, which on the card is one launch of the histogram
     kernel for every ROI of the class; only the (n_rois, 8, bins) frequency
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from ife_tpu_torch.kernels.histogram import _edges_f32_round_down, histogram_boxes
+from ife_tpu_torch.native_lib import histogram_channels_native
 from ife_tpu_torch.ops.features import NUM_FEATURES, features8_auto_channels
 from ife_tpu_torch.parallel.mesh import default_device
 from ife_tpu_torch.roi.generate import ROI
@@ -96,9 +98,21 @@ def make_bag(
         col0 = i * NUM_FEATURES * hist_size
         for j, r in enumerate(rois):
             inside = roi_masks[j]
+            vox = [feats[k][r.slices()][inside] for k in range(NUM_FEATURES)]
+            if feats[0].dtype == np.float32:
+                # the MakeBag hot loop in the native library's threads: all
+                # 8 channels in one call (masked features are finite: the
+                # pass zeroes NaN / inf off the mask; a NaN inside would
+                # land in bin 0 here and in the upper tail on numpy's path,
+                # as in ife_tpu)
+                counts = histogram_channels_native(np.stack(vox, axis=1),
+                                                   edges_block)
+                with np.errstate(divide="ignore", invalid="ignore"):
+                    freqs = counts.astype(np.float64) / np.float64(len(vox[0]))
+                bag[j, col0 : col0 + NUM_FEATURES * hist_size] = freqs.reshape(-1)
+                continue
             for k in range(NUM_FEATURES):
-                freqs = _roi_frequencies(feats[k][r.slices()][inside],
-                                         edges_block[k])
+                freqs = _roi_frequencies(vox[k], edges_block[k])
                 col = col0 + k * hist_size
                 bag[j, col : col + hist_size] = freqs
     return bag

@@ -24,6 +24,7 @@ from ife_tpu_torch.kernels.histogram import (
     _counts_plain,
     histogram_counts_kernel,
 )
+from ife_tpu_torch.native_lib import histogram_native
 
 
 def histogram_counts(
@@ -173,8 +174,8 @@ def uniform_histogram_counts(
 class DenseHistogram:
     """Host-side accumulating histogram mirroring the reference class API
     (insert / get_counts / get_frequencies / reset_counts), with vectorized
-    bulk inserts. A copy of ife_tpu's numpy path (its threaded C++ branch
-    waits for the native library's port; it gives the same counts).
+    bulk inserts; large f32 inserts bin in the native library's threads, as
+    ife_tpu's do.
 
     Reference: DenseHistogram.h:13-78. getFrequencies divides by the total
     count (an integer sum, DenseHistogram.h:55-60).
@@ -201,6 +202,12 @@ class DenseHistogram:
     def insert_many(self, values, weights=None) -> None:
         """Vectorized bulk insert (weights must be nonneg ints if given)."""
         v = np.asarray(values).reshape(-1)
+        # f32 only: the C path bins float32, which could land f64 values in
+        # a neighbor bin right at an edge. As in ife_tpu, a NaN lands in bin
+        # 0 on this path and in the upper tail on numpy's.
+        if weights is None and v.size > (1 << 16) and v.dtype == np.float32:
+            self._counts += histogram_native(v, self._edges)
+            return
         idx = np.searchsorted(self._edges, v, side="left")
         if weights is None:
             binc = np.bincount(idx, minlength=self._counts.size)

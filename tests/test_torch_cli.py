@@ -3,8 +3,9 @@ files agree in f32 within the per-channel budget of docs/design.md, and the
 bag tools' hist specs, bags and ROI files agree with ife_tpu's; the other
 ROI tools, the converters, merge-bags, expected-distance and image-browser
 write the same files, arrays or text (tests/test_torch_transform.py holds
-the image tools); plus the package-level contracts (no JAX import, TF32 off,
-`python -m` entry, the registry: ife_tpu's less convert-dicom)."""
+the image tools), convert-dicom writes the same files from the same DICOM
+series; plus the package-level contracts (no JAX import, TF32 off,
+`python -m` entry, the registry: ife_tpu's)."""
 import gzip
 import io
 import os
@@ -173,7 +174,7 @@ def test_sharded_is_refused_and_only_the_slice_is_registered(workdir, capsys):
         a, b = _load_pair(d, f"whole_scale_1{name}.nii.gz",
                           f"blocks_scale_1{name}.nii.gz")
         assert _rel(b, a) < F32_BUDGET[name], name
-    assert set(TC.REGISTRY) == set(J_REGISTRY) - {"convert-dicom"}
+    assert set(TC.REGISTRY) == set(J_REGISTRY)
 
 
 def test_python_m_entry_point_runs(workdir):
@@ -470,6 +471,37 @@ def test_converters_match_ife_tpu(workdir, fmt):
     _run(t_main, name, src, d / f"t_conv_{fmt}.nii.gz")
     _run(j_main, name, src, d / f"j_conv_{fmt}.nii.gz")
     _same_file(d / f"t_conv_{fmt}.nii.gz", d / f"j_conv_{fmt}.nii.gz")
+
+
+def test_convert_dicom_matches_ife_tpu(workdir, capsys):
+    from ife_tpu_torch import native_lib
+    from tests.test_torch_dicom import (EXPLICIT, JPEG_LL, JPEG_LS, ct_slice,
+                                        dicom_file)
+
+    d = workdir / "dicom_in"
+    d.mkdir()
+    rng = np.random.default_rng(9)
+    for k, ts in enumerate((EXPLICIT, JPEG_LL, JPEG_LS)):
+        for z in range(3):
+            (d / f"{k}_{z}.dcm").write_bytes(dicom_file(
+                ts, ct_slice(rng, (10, 12), np.int16), 1.25 * z,
+                uid=f"1.2.3.{k}".encode(), patient=f"P{k}".encode(),
+                fragments=2 if ts == JPEG_LL else 1))
+    native_lib.reset_counts()
+    capsys.readouterr()
+    _run(t_main, "convert-dicom", "-d", d, "-o", workdir / "t_dcm")
+    t_out = capsys.readouterr().out
+    assert native_lib.CALLS["jll_decode"] == native_lib.CALLS["jls_decode"] == 3
+    assert native_lib.FALLBACKS == {"jll_decode": 0, "jls_decode": 0}
+    _run(j_main, "convert-dicom", "-d", d, "-o", workdir / "j_dcm")
+    j_out = capsys.readouterr().out
+    names = sorted(os.listdir(workdir / "t_dcm"))
+    assert names == sorted(os.listdir(workdir / "j_dcm")) == [
+        f"P{k}_20260817_B30f_1.25.nii.gz" for k in range(3)]
+    for n in names:
+        _same_file(workdir / "t_dcm" / n, workdir / "j_dcm" / n)
+    assert t_out.replace("t_dcm", "j_dcm") == j_out
+    assert t_out.count("wrote ") == 3
 
 
 def test_merge_bags_matches_ife_tpu(workdir):

@@ -1164,3 +1164,41 @@ def test_resample_to_grid_on_the_card_equals_the_cpu(cuda, order, dtype):
         assert _f32_ulps(got.data, want.data) <= 1
     else:
         assert torch.equal(got.data.cpu(), want.data)
+
+
+def test_converted_dicom_series_go_through_the_card(cuda, tmp_path):
+    # the core of chip_smoke's dicom phase at a small size: three series
+    # (raw, fragmented JPEG Lossless, JPEG-LS) through convert-dicom, every
+    # compressed frame decoded natively, then the card's features8 pass on
+    # a converted volume, equal to its plain twin and to the pass on the
+    # series' own volume
+    import chip_smoke as C
+    from ife_tpu_torch import native_lib
+    from ife_tpu_torch.io import read_volume
+    from ife_tpu_torch.io.dicom import convert_dicom_dir
+    from ife_tpu_torch.ops.features import (features8_auto_channels,
+                                            features8_dispatch_branch)
+
+    shape = (40, 36, 12)
+    stored, _, _ = C.write_dicom_dir(str(tmp_path / "dcm"), shape, 3)
+    native_lib.reset_counts()
+    written = convert_dicom_dir(str(tmp_path / "dcm"), str(tmp_path / "nii"))
+    assert native_lib.CALLS["jll_decode"] == native_lib.CALLS["jls_decode"] == 12
+    assert native_lib.FALLBACKS == {"jll_decode": 0, "jls_decode": 0}
+    want = C.dicom_expected_volume(stored, shape[2])
+    assert sorted(written) == sorted(
+        str(tmp_path / "nii" / C.dicom_file_name(p)) for p, _ in C.DICOM_SERIES)
+    vols = [read_volume(p) for p in written]
+    assert all(np.array_equal(v.numpy(), want) for v in vols)
+    vol = vols[-1]
+    img = vol.data.to(cuda).contiguous()
+    mask = sphere_mask(vol.shape, 0.4, dtype=torch.float32, device=cuda).data
+    K.reset_launches()
+    got = features8_auto_channels(img, mask, 1.2, vol.spacing)
+    branch = features8_dispatch_branch(1.2, vol.spacing, vol.shape)
+    assert all(K.LAUNCHES[k] >= 1 for k in C.BRANCH_KERNELS[branch])
+    twin = C.branch_twin(img, mask, 1.2, vol.spacing)
+    mem = features8_auto_channels(torch.from_numpy(want).to(cuda), mask, 1.2,
+                                  vol.spacing)
+    for g, t, m in zip(got, twin, mem):
+        assert _same(g, t) and torch.equal(g, m)
