@@ -17,7 +17,8 @@
                                         # features8 branches alone
     python3 chip_smoke.py --probes [mode...]  # the probe phase alone (modes:
                                         # PROBE_MODES; default all)
-    python3 chip_smoke.py --dicom       # phase 4's dicom path alone
+    python3 chip_smoke.py --dicom       # phase 4's dicom path alone, at
+                                        # its full size (DICOM_SHAPE)
     python3 chip_smoke.py --profile     # phase 6 alone (the default run
                                         # runs it so, in a process of its
                                         # own)
@@ -116,7 +117,8 @@ failing phase exits non-zero:
               resample_to_grid orders 0 and 1 at 512^3 onto a shifted 0.7 x
               0.7 x 1.1 mm grid, card against CPU; call ms of the two
               resamples, mask_image, relabel_mask and intensity_window at
-              512^3. DICOM: three 512 x 512 x 128 int16 CT series (explicit
+              512^3. DICOM: three 512 x 512 x 32 int16 CT series (512 x 512
+              x 128 with --dicom; explicit
               VR raw, fragmented JPEG Lossless, JPEG-LS) through the CLI
               convert-dicom, the native decoders' counters reset first:
               every NIfTI equal to the series' float32 volume with its
@@ -222,9 +224,9 @@ single-device port to the bit wherever both run the same kernel arithmetic
 (every sigma the single-device dispatcher does not send to the xs-stream
 branch, y-z-x, where the sharded route takes the normalized convolution,
 x-y-z: there the sharded pass equals the single-device normalized
-convolution + post to the bit and the dispatcher's pass within SHARD_TOL). The line before the last is
-{"kernels": [...]}: per kernel its launches on the main paths, its time, its
-plain twin's time and its bound at 512^3. The bound is the larger of the
+convolution + post to the bit and the dispatcher's pass within SHARD_TOL).
+Ahead of the last two lines is {"kernels": [...]}: per kernel its launches
+on the main paths, its time, its plain twin's time and its bound at 512^3. The bound is the larger of the
 bytes the function must move (each input read once, each output written
 once) over 3.35 TB/s and its arithmetic (counted from this run's shapes and
 radii) over 67 TFLOP/s, the published peaks of the H100 SXM. library_ms is
@@ -232,7 +234,10 @@ the time of the PyTorch calls named in `library` that compute the same
 function on the same inputs (the probes': torch.mul, six torch.mul, six
 torch.add, six clone), null where none does: the feature kernels are each a
 chain of pads, per-axis convolutions, a divide and a closed-form eigen solve,
-or a search plus a scatter; `library` says which. The last line is
+or a search plus a scatter; `library` says which. The line before the
+last is [budget]: the wall s of each phase, their total and the card's name
+and power limit (--dicom prints it too; it never changes the exit code).
+The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -458,6 +463,32 @@ def card_line():
     if res.returncode != 0:
         raise PhaseError(f"nvidia-smi failed: {res.stderr.strip()}")
     return res.stdout.strip().splitlines()[0]
+
+
+class Budget:
+    """Wall seconds of a run's phases, summed by name over their visits:
+    enter(name) closes the phase that is open and opens the next."""
+
+    def __init__(self):
+        self.secs, self.name, self.t0 = {}, None, time.perf_counter()
+
+    def enter(self, name):
+        now = time.perf_counter()
+        if self.name is not None:
+            self.secs[self.name] = self.secs.get(self.name, 0.0) + now - self.t0
+        self.name, self.t0 = name, now
+        return name
+
+    def report(self):
+        """The [budget] line: each phase's wall s, their total, the card's
+        name and power limit. For information only: it never raises."""
+        self.enter(None)
+        try:
+            card = card_line()
+        except Exception as e:  # noqa: BLE001 - the line may not fail a run
+            card = f"card not read: {e}"
+        say("budget", " | ".join(f"{k} {v:.1f} s" for k, v in self.secs.items())
+            + f" | total {sum(self.secs.values()):.1f} s | {card}")
 
 
 # ---------------------------------------------------------------------------
@@ -1894,8 +1925,12 @@ def phase_tools(tmp, big_img, big_mask):
 
 # the dicom phase's series: a slab of a chest CT, each series in its own
 # transfer syntax; the Python encoders take seconds a 512^2 slice, so each
-# codec encodes DICOM_DISTINCT slices and the files reuse their frames
+# codec encodes DICOM_DISTINCT slices and the files reuse their frames.
+# Each converted series is one gzip-9 write of its f32 volume (~100 s at
+# DICOM_SHAPE): the default run converts DICOM_SMOKE_SHAPE, the same 512^2
+# slices a quarter as deep, and --dicom the full size
 DICOM_SHAPE = (512, 512, 128)     # rows, columns, slices of a series
+DICOM_SMOKE_SHAPE = (512, 512, 32)
 DICOM_SPACING = (0.7, 0.7, 1.25)  # row and column spacing, slice step (mm)
 DICOM_DISTINCT = 4
 DICOM_SERIES = (  # patient id (it names the file), transfer syntax
@@ -2073,9 +2108,9 @@ def deriche_yardstick():
     return out
 
 
-def phase_dicom(tmp, make_bag_s, binning):
+def phase_dicom(tmp, shape, make_bag_s, binning):
     """convert-dicom through the CLI on a directory of three CT series of
-    DICOM_SHAPE (raw, fragmented JPEG Lossless, JPEG-LS), the native
+    `shape` (raw, fragmented JPEG Lossless, JPEG-LS), the native
     decoders' counters reset first: every file equal to the expected
     float32 volume with its spacing and name, every compressed frame
     decoded natively with no fallback, the native decoders equal to the
@@ -2100,10 +2135,10 @@ def phase_dicom(tmp, make_bag_s, binning):
 
     t_phase = time.perf_counter()
     card = card_line()
-    rows, cols, n = DICOM_SHAPE
+    rows, cols, n = shape
     src, out = os.path.join(tmp, "dicom"), os.path.join(tmp, "dicom_nii")
     t0 = time.perf_counter()
-    stored, frames, enc_s = write_dicom_dir(src, DICOM_SHAPE, DICOM_DISTINCT)
+    stored, frames, enc_s = write_dicom_dir(src, shape, DICOM_DISTINCT)
     build_s = time.perf_counter() - t0
 
     # the native decoders against the Python ones on a frame of each codec
@@ -2208,7 +2243,7 @@ def phase_dicom(tmp, make_bag_s, binning):
                                for s, d in deriche.items()))
     phase_s = time.perf_counter() - t_phase
     print(json.dumps({"dicom": {
-        "card": card, "shape": list(DICOM_SHAPE), "series": series,
+        "card": card, "shape": list(shape), "series": series,
         "convert_dicom_s": convert_s, "build_series_s": build_s,
         "decode_ms_512": decode_ms, "native_calls": calls,
         "native_fallbacks": fallbacks, "extract_features_s": features_s,
@@ -4132,14 +4167,19 @@ def main() -> int:
         return 0
 
     if sys.argv[1:2] == ["--dicom"]:
+        budget = Budget()
         try:
+            budget.enter("device")
             phase_device()
+            budget.enter("build")
             phase_build()
+            budget.enter("dicom")
             with tempfile.TemporaryDirectory(prefix="ife_chip_smoke_") as tmp:
-                phase_dicom(tmp, None, None)
+                phase_dicom(tmp, DICOM_SHAPE, None, None)
         except PhaseError as e:
             print(f"chip_smoke: --dicom failed: {e}", file=sys.stderr)
             return 1
+        budget.report()
         return 0
 
     if sys.argv[1:2] == ["--profile"]:
@@ -4180,24 +4220,26 @@ def main() -> int:
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
 
-    phase = "device"
+    budget = Budget()
+    phase = budget.enter("device")
     try:
         phase_device()
-        phase = "build"
+        phase = budget.enter("build")
         phase_build()
         errs = {k: [] for k in KERNELS}
-        phase = "kernels"
+        phase = budget.enter("kernels")
         phase_kernels(errs)
-        phase = "main"
+        phase = budget.enter("main")
         with tempfile.TemporaryDirectory(prefix="ife_chip_smoke_") as tmp:
             launches, img, mask = phase_main(tmp)
-            phase = "bags"
+            phase = budget.enter("bags")
             bag_launches, host_bag_s, binning = phase_bags(tmp)
-            phase = "tools"
+            phase = budget.enter("tools")
             tool_launches = phase_tools(tmp, img, mask)
-            phase = "dicom"
-            dicom_launches = phase_dicom(tmp, host_bag_s, binning)
-            phase = "sharded"
+            phase = budget.enter("dicom")
+            dicom_launches = phase_dicom(tmp, DICOM_SMOKE_SHAPE, host_bag_s,
+                                         binning)
+            phase = budget.enter("sharded")
             cli_launches = phase_sharded_cli(tmp)
         shard_launches = phase_sharded(img, mask)
         shard_launches = {k: v + cli_launches[k]
@@ -4205,23 +4247,23 @@ def main() -> int:
         missing = [k for k in SHARDED_PATH if shard_launches.get(k, 0) < 1]
         if missing:
             raise PhaseError(f"sharded path launched no {missing} kernel")
-        phase = "multiscale"
+        phase = budget.enter("multiscale")
         multi_launches = phase_multiscale(img, mask)
         launches = {k: launches[k] + bag_launches[k] + tool_launches[k]
                     + dicom_launches[k] + multi_launches[k]
                     + shard_launches[k] for k in launches}
-        phase = "full"
+        phase = budget.enter("full")
         results = {}
         phase_full(img, mask, errs, results)
         phase_full_sweep(img, mask, errs)
-        phase = "dispatch"
+        phase = budget.enter("dispatch")
         phase_dispatch(img, mask)
-        phase = "full"
+        phase = budget.enter("full")
         phase_full_multi(img, mask, errs, results)
         phase_full_modes(img, mask, errs, results)
         hist_work = phase_full_hist(img, mask, errs, results)
         bounds = kernel_bounds(img.numel(), hist_work)
-        phase = "probes"
+        phase = budget.enter("probes")
         probe_launches = probe_path(img, mask)
         launches = {k: launches[k] + probe_launches[k] for k in launches}
         library = {}
@@ -4229,7 +4271,7 @@ def main() -> int:
         missing = [k for k in KERNELS if "device_ms" not in results.get(k, {})]
         if missing:
             raise PhaseError(f"no device time for {missing}")
-        phase = "profile"
+        phase = budget.enter("profile")
         # in a process of its own: in this one, after the sharded phase's
         # NCCL group and phase 5's profiles, the profiler kept two of three
         # events of the passes of one kernel
@@ -4261,6 +4303,7 @@ def main() -> int:
         for name, (src, rep) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
+    budget.report()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -404,3 +404,69 @@ def test_codecs_refuse_a_malformed_stream_alike(stream):
     with pytest.raises(ValueError):
         TLS.decode_jpegls_fast(stream, 2, 2)
     assert N.FALLBACKS == {"jll_decode": 1, "jls_decode": 1}
+
+
+# chip_smoke.py's dicom phase: the series it builds, converted on the CPU,
+# and the two sizes it converts (the default run's and --dicom's)
+
+@pytest.mark.parametrize("shape", [(64, 64, 6), (48, 40, 9)])
+def test_chip_smoke_series_convert_to_the_expected_volume(tmp_path,
+                                                         monkeypatch, shape):
+    monkeypatch.setenv("IFE_PLATFORM", "cpu")
+    import chip_smoke as C
+    from ife_tpu_torch.cli.main import main
+    from ife_tpu_torch.io import read_volume
+
+    src, out = tmp_path / "dcm", tmp_path / "nii"
+    stored, _, _ = C.write_dicom_dir(str(src), shape, C.DICOM_DISTINCT)
+    assert main(["convert-dicom", "-d", str(src), "-o", str(out)]) == 0
+    assert N.CALLS["jll_decode"] == N.CALLS["jls_decode"] == shape[2]
+    assert N.FALLBACKS == {"jll_decode": 0, "jls_decode": 0}
+    assert sorted(os.listdir(out)) == sorted(
+        C.dicom_file_name(p) for p, _ in C.DICOM_SERIES)
+    want = C.dicom_expected_volume(stored, shape[2])
+    assert want.shape == (shape[1], shape[0], shape[2])
+    for patient, _ in C.DICOM_SERIES:
+        vol = read_volume(str(out / C.dicom_file_name(patient)))
+        got = vol.numpy()
+        assert got.dtype == np.float32
+        np.testing.assert_array_equal(got, want)
+        assert vol.spacing == tuple(float(np.float32(s))
+                                    for s in (0.7, 0.7, 1.25))
+
+
+def test_chip_smoke_converts_its_two_dicom_sizes(monkeypatch, capsys):
+    # main with every phase up to dicom stubbed: the default run converts
+    # DICOM_SMOKE_SHAPE, --dicom DICOM_SHAPE, both of 512^2 slices; --dicom's
+    # [budget] line prints without a card and leaves the exit code 0
+    import sys
+
+    import chip_smoke as C
+
+    assert C.DICOM_SHAPE == (512, 512, 128)
+    assert C.DICOM_SMOKE_SHAPE == (512, 512, 32)
+    seen = []
+
+    def dicom(tmp, shape, make_bag_s, binning):
+        seen.append(shape)
+        if sys.argv[1:] != ["--dicom"]:
+            raise C.PhaseError("stopped after the dicom phase")
+        return {}
+
+    for name, value in (("phase_device", None), ("phase_build", None),
+                        ("phase_kernels", None), ("phase_main", (0, 0, 0)),
+                        ("phase_bags", (0, 0, 0)), ("phase_tools", None)):
+        monkeypatch.setattr(C, name, lambda *a, v=value: v)
+    monkeypatch.setattr(C, "phase_dicom", dicom)
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    monkeypatch.setattr(sys, "argv", ["chip_smoke.py", "--dicom"])
+    assert C.main() == 0
+    budget = [line for line in capsys.readouterr().out.splitlines()
+              if line.startswith("[budget] ")]
+    assert len(budget) == 1 and "| dicom " in budget[0]
+    assert " | total " in budget[0]
+    monkeypatch.setattr(sys, "argv", ["chip_smoke.py"])
+    assert C.main() == 1
+    assert "phase dicom failed" in capsys.readouterr().err
+    assert seen == [C.DICOM_SHAPE, C.DICOM_SMOKE_SHAPE]
+    assert all(s[:2] == (512, 512) for s in seen)
