@@ -179,6 +179,18 @@ failing phase exits non-zero:
               the same ms a launch) and the LDG and LDGSTS (cp.async) counts
               of each Hessian and tap instantiation (cuobjdump -sass: the
               copy floors keep the features' loads);
+     bench    bench_torch.py's three modes as a user runs them, each in a
+              process of its own: the headline line (the Hessian kernel's
+              first channel at 512^3 by device ms, with the verify gate),
+              --verify (the gate alone) and --all (BASELINE.md configs 1-4,
+              the gate before config 4) into a temporary artifact; the
+              metric must name the card, the value be finite and > 0, every
+              gate entry < 1e-4 over at least three dispatch branches, the
+              line and the artifact carry every key of bench.py's (no
+              *_error), each mode launched the seven kernels of its path
+              (BENCH_PATH, from its own `launches`); one JSON line
+              {"bench": ...} of the headline, the configs, the launches,
+              the processes' wall s and the card;
      dispatch the features8 pass at 512^3 through each branch that takes
               the scale (sweep, y/z passes + xs-stream, normalized_conv +
               post), in turns, under the sphere mask and a mask of ones, at
@@ -243,6 +255,7 @@ The last line is
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import subprocess
@@ -252,8 +265,33 @@ import time
 
 import torch
 
+try:
+    # the yardsticks, one copy for this script and bench_torch.py
+    from ife_tpu_torch.utils.profiling import (
+        DEVICE_CALLS, DEVICE_SLEEP_CYCLES, card_line, cuda_ms, device_ms)
+except ModuleNotFoundError as e:
+    raise SystemExit("chip_smoke: run it from a checkout of the repo "
+                     f"(ife_tpu_torch/ not found beside it: {e})") from e
+
 TOL = 1e-4
 SIGMAS = (0.6, 1.2, 2.4, 4.8)
+# bench.py's headline line and its TPU artifact (BENCH_DETAIL.json), the
+# keys bench_torch.py's must carry
+BENCH_PY_HEADLINE_KEYS = ("metric", "value", "unit", "vs_baseline",
+                          "baseline", "spread", "verify")
+BENCH_PY_ARTIFACT_KEYS = (
+    "device", "platform", "config1_eigen_64cubed_voxels_per_sec",
+    "config2_hessian_eig_128cubed_voxels_per_sec",
+    "config3_per_scale_voxels_per_sec", "config3_fused_voxels_per_sec",
+    "config3_multiscale4_features8_voxels_per_sec", "config3_shape",
+    "verify_on_chip", "config4_feat_ms", "config4_hist_ms",
+    "config4_features_plus_hist_512cubed_voxels_per_sec", "config4_shape",
+    "config4_composed_one_jit_ms")
+# the kernels each of bench_torch.py's modes must launch (every mode runs
+# the gate, which reaches all seven)
+BENCH_PATH = ("hessian_eig", "features8_sweep", "features8_xs_stream",
+              "normalized_conv", "features8_post", "features8_ys_multi",
+              "histogram")
 SPACINGS = ((0.78, 0.78, 1.0), (0.7, 0.9, 1.2))
 FULL = (512, 512, 512)
 FULL_SPACING = (0.78, 0.78, 1.0)
@@ -432,11 +470,6 @@ BRANCH_KERNELS = {"sweep": ("features8_sweep",),
 # float32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = 67e12
-# the device yardstick (device_ms): calls between one event pair, and the
-# clock cycles of the torch.cuda._sleep queued ahead of them (~2 ms at the
-# H100's 1.98 GHz boost clock), longer than the host takes to enqueue them
-DEVICE_CALLS = 10
-DEVICE_SLEEP_CYCLES = 4_000_000
 # floating-point operations per voxel of the shared tail, counted from
 # csrc/features8_tail.cuh: 42 in the differences and the gradient
 # magnitude, ~110 in the eigen solve and its features
@@ -454,15 +487,6 @@ class PhaseError(RuntimeError):
 
 def say(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
-
-
-def card_line():
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    if res.returncode != 0:
-        raise PhaseError(f"nvidia-smi failed: {res.stderr.strip()}")
-    return res.stdout.strip().splitlines()[0]
 
 
 class Budget:
@@ -563,50 +587,6 @@ def kernel_check(name, got, ref, inside=None):
     return feature_errors(got, ref, eig)
 
 
-def cuda_ms(fn, reps=5):
-    """(median, min, max) ms of fn() by CUDA events, after one warm call."""
-    fn()
-    torch.cuda.synchronize()
-    ts = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        out = fn()
-        b.record()
-        torch.cuda.synchronize()
-        ts.append(a.elapsed_time(b))
-        del out
-    ts.sort()
-    return ts[len(ts) // 2], ts[0], ts[-1]
-
-
-def device_ms(fn, calls=DEVICE_CALLS, reps=5):
-    """(median, min, max) ms a call of fn on the device: one warm call, then
-    `reps` runs of `calls` back-to-back calls between one event pair, each
-    run behind a torch.cuda._sleep of DEVICE_SLEEP_CYCLES (~2 ms) so that the
-    card has work queued while the host enqueues the calls: the wrappers'
-    host time (argument checks, allocations, the ctypes call) hides behind
-    the device's work unless a call waits for the card. cuda_ms, which
-    starts each call on an idle card, is the call's time as a caller waits
-    for it."""
-    fn()
-    torch.cuda.synchronize()
-    ts = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(DEVICE_SLEEP_CYCLES)
-        a.record()
-        for _ in range(calls):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        ts.append(a.elapsed_time(b) / calls)
-    ts.sort()
-    return ts[len(ts) // 2], ts[0], ts[-1]
-
-
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -625,7 +605,10 @@ def phase_device():
         f"python {sys.version.split()[0]} | {nvcc[-1] if nvcc else 'nvcc ?'}")
     say("device", f"{torch.cuda.get_device_name(0)} cc {cc} "
         f"count {torch.cuda.device_count()}")
-    print(card_line(), flush=True)
+    try:
+        print(card_line(), flush=True)
+    except (OSError, RuntimeError) as e:
+        raise PhaseError(f"nvidia-smi: {e}") from e
 
 
 def phase_build():
@@ -2800,7 +2783,6 @@ def dispatch_sigmas():
     """(x radius, sigma) at FULL_SPACING for every x radius 4 .. 28 and
     DISPATCH_WIDE_RADII: DISPATCH_SIGMAS, and for each radius they leave out
     the sigma (rx - 0.5) * h / 4.5, whose radius is rx."""
-    import math
 
     rows = {}
     for sigma in DISPATCH_SIGMAS:
@@ -3687,6 +3669,83 @@ def phase_probes(img, mask, errs, results, library, modes=PROBE_MODES):
     print(card_line(), flush=True)
 
 
+def bench_run(*args):
+    """(the last stdout line of `python3 bench_torch.py *args` as JSON, its
+    wall s); a non-zero exit raises PhaseError with its stderr's tail."""
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "bench_torch.py")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, script, *args], capture_output=True,
+                         text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise PhaseError(f"bench_torch.py {' '.join(args)} exited "
+                         f"{res.returncode}: {res.stderr.strip()[-800:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1]), wall
+
+
+def check_gate(label, report, launches):
+    """Every gate entry < TOL, the dispatch entries over >= 3 branches;
+    every kernel of BENCH_PATH in the mode's `launches`."""
+    missing = [k for k in BENCH_PATH if launches.get(k, 0) < 1]
+    if missing:
+        raise PhaseError(f"bench {label}: launched no {missing} kernel "
+                         f"({launches})")
+    bad = {k: v for k, v in report.items() if not v < TOL}
+    if bad:
+        raise PhaseError(f"bench {label}: gate entries at or over {TOL}: {bad}")
+    branches = {k.split("[")[1] for k in report if k.startswith("auto_s")}
+    if len(branches) < 3:
+        raise PhaseError(f"bench {label}: the gate reached the branches "
+                         f"{branches}, fewer than 3")
+    return max(report.values())
+
+
+def phase_bench():
+    """bench_torch.py's headline line, --verify and --all, each in a
+    process of its own (the kernels come from this run's build)."""
+    name = torch.cuda.get_device_name(0)
+    head, head_s = bench_run()
+    missing = [k for k in BENCH_PY_HEADLINE_KEYS if k not in head]
+    want = f"hessian_eig_voxels_per_sec_chip_512cubed_{name.replace(' ', '_')}"
+    if missing or head["metric"] != want:
+        raise PhaseError(f"bench: headline keys missing {missing}, metric "
+                         f"{head.get('metric')!r} (want {want!r})")
+    if not (math.isfinite(head["value"]) and head["value"] > 0):
+        raise PhaseError(f"bench: headline value {head['value']}")
+    launches = {"headline": head.pop("launches")}
+    worst = {"headline": check_gate("headline", head["verify"],
+                                    launches["headline"])}
+    ver, ver_s = bench_run("--verify")
+    if ver.pop("verify") != "ok":
+        raise PhaseError(f"bench --verify: {ver}")
+    launches["verify"] = ver.pop("launches")
+    worst["verify"] = check_gate("--verify", ver, launches["verify"])
+    with tempfile.TemporaryDirectory(prefix="ife_bench_") as tmp:
+        detail, all_s = bench_run("--all", "--out",
+                                  os.path.join(tmp, "detail.json"))
+    missing = [k for k in BENCH_PY_ARTIFACT_KEYS if k not in detail]
+    errors = [k for k in detail if k.endswith("_error")]
+    if missing or errors or detail["device"] != name:
+        raise PhaseError(f"bench --all: keys missing {missing}, errors "
+                         f"{errors}, device {detail.get('device')!r}")
+    launches["all"] = detail.pop("launches")
+    worst["all"] = check_gate("--all", detail.pop("verify_on_chip"),
+                              launches["all"])
+    say("bench", f"headline {head['value']:.6g} voxels/s "
+        f"({head['vs_baseline']:.6g} x the pinned baseline), device ms "
+        f"{head['ms']['device']}, call ms {head['ms']['call']}; worst gate "
+        f"entry {max(worst.values()):.3g}; processes {head_s:.1f} / "
+        f"{ver_s:.1f} / {all_s:.1f} s")
+    print(json.dumps({"bench": {
+        "headline": {k: head[k] for k in ("metric", "value", "vs_baseline",
+                                          "spread", "ms")},
+        "launches": launches,
+        "configs": detail, "worst_gate_entry": worst,
+        "wall_s": {"headline": head_s, "verify": ver_s, "all": all_s},
+        "card": card_line()}}), flush=True)
+
+
 def phase_profile(img, mask):
     """Device time per CUDA kernel of each pass (kernel_breakdown); a
     profiler that records no device time, or loses events, prints "not
@@ -4125,6 +4184,17 @@ def sweep_times(label, groups=("sweep", "tap", "hessian", "nc")):
     print(json.dumps(res), flush=True)
 
 
+def import_from(checkout):
+    """Make `checkout`'s ife_tpu_torch the package later imports load: the
+    modules of the one loaded so far are forgotten (the yardsticks imported
+    above keep theirs, so every checkout is timed by this script's), then
+    the checkout goes first on sys.path."""
+    for name in [m for m in sys.modules
+                 if m == "ife_tpu_torch" or m.startswith("ife_tpu_torch.")]:
+        del sys.modules[name]
+    sys.path.insert(0, checkout)
+
+
 def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "ife_tpu_torch")):
@@ -4134,7 +4204,7 @@ def main() -> int:
     if sys.argv[1:2] == ["--sweep-times"]:
         other = os.path.abspath(sys.argv[2]) if len(sys.argv) > 2 else root
         groups = tuple(sys.argv[3:]) or ("sweep", "tap", "hessian", "nc")
-        sys.path.insert(0, other)
+        import_from(other)
         try:
             if not set(groups) <= {"sweep", "tap", "hessian", "nc"}:
                 raise PhaseError(f"unknown groups {groups}: sweep, tap, "
@@ -4146,7 +4216,7 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--hist-times"]:
         other = os.path.abspath(sys.argv[2]) if len(sys.argv) > 2 else root
-        sys.path.insert(0, other)
+        import_from(other)
         try:
             hist_times(other)
         except PhaseError as e:
@@ -4271,12 +4341,14 @@ def main() -> int:
         missing = [k for k in KERNELS if "device_ms" not in results.get(k, {})]
         if missing:
             raise PhaseError(f"no device time for {missing}")
+        del img, mask
+        torch.cuda.empty_cache()
+        phase = budget.enter("bench")
+        phase_bench()
         phase = budget.enter("profile")
         # in a process of its own: in this one, after the sharded phase's
         # NCCL group and phase 5's profiles, the profiler kept two of three
         # events of the passes of one kernel
-        del img, mask
-        torch.cuda.empty_cache()
         res = subprocess.run([sys.executable, os.path.abspath(__file__),
                               "--profile"], capture_output=True, text=True,
                              timeout=600)

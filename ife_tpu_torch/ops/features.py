@@ -130,7 +130,7 @@ def features8_dispatch_branch(sigma, spacing, shape, truncate=4.5) -> str:
     radius rx = ceil(truncate * sigma / spacing[0]) as in ife_tpu:
       * "sweep" (rx <= 10): fused_features8_sweep, the whole pass in one
         kernel;
-      * "xs_stream" (rx <= 20): fused_smooth_yz, then
+      * "xs_stream" (rx <= 24): fused_smooth_yz, then
         fused_features8_xs_stream (x pass, divide and tail in one kernel);
       * "nc_conv+post": fused_normalized_conv_sweep, then
         fused_features8_post_stream.

@@ -9,10 +9,18 @@ ife_tpu/utils/profiling.py).
     synchronising the CUDA device at both ends so the time covers the
     device work queued inside the stage, not just its enqueue;
   * optionally emits a JSON metrics line per stage.
+
+Beside it, the yardsticks chip_smoke.py and bench_torch.py time the card
+with (one copy, so the two cannot drift apart): `cuda_ms`, a call on an
+idle card as its caller waits for it; `device_ms`, back-to-back calls behind
+queued work, the card's own time; `wall_ms`, the host clock's counterpart of
+device_ms for a run on the CPU; and `card_line` / `card`, the card's name
+and power limit as nvidia-smi reports them.
 """
 from __future__ import annotations
 
 import contextlib
+import subprocess
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
@@ -94,3 +102,99 @@ def stage_timer(
         if rec.voxels_per_sec is not None:
             payload["voxels_per_sec"] = round(rec.voxels_per_sec, 1)
         log_json("stage", payload)
+
+
+# ---------------------------------------------------------------------------
+# yardsticks
+# ---------------------------------------------------------------------------
+
+# the device yardstick (device_ms): calls between one event pair, and the
+# clock cycles of the torch.cuda._sleep queued ahead of them (~2 ms at the
+# H100's 1.98 GHz boost clock), longer than the host takes to enqueue them
+DEVICE_CALLS = 10
+DEVICE_SLEEP_CYCLES = 4_000_000
+
+
+def _median_min_max(ts):
+    ts = sorted(ts)
+    return ts[len(ts) // 2], ts[0], ts[-1]
+
+
+def cuda_ms(fn, reps=5):
+    """(median, min, max) ms of fn() by CUDA events, after one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        ts.append(a.elapsed_time(b))
+        del out
+    return _median_min_max(ts)
+
+
+def device_ms(fn, calls=DEVICE_CALLS, reps=5):
+    """(median, min, max) ms a call of fn on the device: one warm call, then
+    `reps` runs of `calls` back-to-back calls between one event pair, each
+    run behind a torch.cuda._sleep of DEVICE_SLEEP_CYCLES (~2 ms) so that the
+    card has work queued while the host enqueues the calls: the wrappers'
+    host time (argument checks, allocations, the ctypes call) hides behind
+    the device's work unless a call waits for the card. cuda_ms, which
+    starts each call on an idle card, is the call's time as a caller waits
+    for it."""
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(DEVICE_SLEEP_CYCLES)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        ts.append(a.elapsed_time(b) / calls)
+    return _median_min_max(ts)
+
+
+def wall_ms(fn, calls=DEVICE_CALLS, reps=5):
+    """(median, min, max) ms a call of fn on the host's clock: one warm
+    call, then `reps` runs of `calls` back-to-back calls. device_ms's
+    counterpart for a run on the CPU, where the host does the work."""
+    fn()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        ts.append((time.perf_counter() - t0) * 1e3 / calls)
+    return _median_min_max(ts)
+
+
+def card_line() -> str:
+    """The first card's `name, power limit` as
+    `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` prints
+    it (e.g. "NVIDIA H100 80GB HBM3, 700.00 W"). Raises RuntimeError when
+    nvidia-smi fails, OSError when there is none."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {res.stderr.strip()}")
+    return res.stdout.strip().splitlines()[0]
+
+
+def card() -> Dict[str, object]:
+    """card_line as {"name": ..., "power_limit_w": watts, a float, or None
+    where nvidia-smi prints no number}."""
+    name, _, limit = card_line().rpartition(",")
+    try:
+        watts: Optional[float] = float(limit.strip().split()[0])
+    except (ValueError, IndexError):
+        watts = None
+    return {"name": name.strip(), "power_limit_w": watts}
