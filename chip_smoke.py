@@ -19,6 +19,9 @@
                                         # PROBE_MODES; default all)
     python3 chip_smoke.py --dicom       # phase 4's dicom path alone, at
                                         # its full size (DICOM_SHAPE)
+    python3 chip_smoke.py --cli-full    # phase 4's main path alone, the
+                                        # feature CLI at its full size
+                                        # (CLI_SHAPE)
     python3 chip_smoke.py --profile     # phase 6 alone (the default run
                                         # runs it so, in a process of its
                                         # own)
@@ -85,9 +88,11 @@ failing phase exits non-zero:
               image with NaN / inf off the mask) and their SASS
               (nc_sass_check: no FFMA in the walks);
   4. main     five paths of user entry points, the launch counters reset
-              before each and read after it. Features: the CLI
+              before each and read after it (and a sixth, graft, below). Features: the CLI
               (extract-features -s 0.6 2.4, hessian-features with and
-              without --fused) on a 256x256x128 NIfTI, outputs checked
+              without --fused) on a 128x128x64 NIfTI (256x256x128 with
+              --cli-full; the 256x256x128 pair is written beside it, the
+              input of the bag and tool runs), outputs checked
               against the plain f64 ops (hessian-features without --fused
               also per channel against hessian_eig_reference_plain: ife_tpu's
               hessian_eig_features, bit for bit), then features8_auto_channels at
@@ -133,9 +138,10 @@ failing phase exits non-zero:
               decode ms of a 512^2 slice, extract-features s and the host
               make-bag s of the bag path. Every kernel must
               have launched, features8_ys_multi exactly once per
-              multiscale_features8_fused call. Sharded: on the 256x256x128
-              pair the CLI extract-features / make-bag / determine-bin-edges
-              --sharded --blocks 4 against the unsharded files; at 512^3 on
+              multiscale_features8_fused call. Sharded: the CLI
+              extract-features (on the feature CLI's pair) / make-bag /
+              determine-bin-edges (on the 256x256x128 pair) --sharded
+              --blocks 4 against the unsharded files; at 512^3 on
               cuda:0 a 4-block 1D mesh and a 2 x 2 mesh in one process:
               sharded_features8 per sigma (sweep + clamps at 0.6 / 1.2, the
               normalized convolution of the extended block + post with
@@ -146,6 +152,14 @@ failing phase exits non-zero:
               (NCCL, world size 1); then the direct entries
               fused_features8_tap / _xs, fused_features8_sweep_multi with
               clamps and fused_features8_post pre_padded;
+     graft    graft_entry_torch.py's entry() (features8 of a 64^3 synthetic
+              CT at sigma 1.0 through the sweep kernel, bit-equal to its
+              twin, held to the plain f64 ops as the CLI's outputs are) and
+              dryrun_multichip(4)
+              / dryrun_step(4) (a 2 x 2 block mesh: the sweep with clamps at
+              sigma 0.8 and 1.6 within SHARD_TOL of the single-device pass,
+              the histogram kernel's counts equal to histogram_counts of the
+              gathered smoothed channel), counters reset first;
   5. full     512^3 f32: kernel and plain times (CUDA events, median of 5
               with spread) and kernel-vs-plain checks per kernel and sigma,
               the features8 pass per sigma, the sweep at sigma 0.6 / 1.2 /
@@ -248,7 +262,8 @@ torch.add, six clone), null where none does: the feature kernels are each a
 chain of pads, per-axis convolutions, a divide and a closed-form eigen solve,
 or a search plus a scatter; `library` says which. The line before the
 last is [budget]: the wall s of each phase, their total and the card's name
-and power limit (--dicom prints it too; it never changes the exit code).
+and power limit (--dicom and --cli-full print it too; it never changes the
+exit code).
 The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -1397,8 +1412,17 @@ def branch_twin(img, m, sigma, sp):
                                   m, sp)
 
 
-def phase_main(tmp):
-    """The user entry points, counters reset first; returns the counts."""
+# the NIfTI pair the bag, tool and sharded CLI runs read, and the feature
+# CLI's input with --cli-full; the default run's feature CLI reads a pair an
+# eighth its size (gzip-9 writes of the outputs take nearly all its time)
+CLI_SHAPE = (256, 256, 128)
+CLI_SMOKE_SHAPE = (128, 128, 64)
+
+
+def phase_main(tmp, cli_shape=CLI_SMOKE_SHAPE):
+    """The user entry points, counters reset first; returns the counts. The
+    feature CLI runs on the pair cli_img / cli_mask of `cli_shape`; the
+    CLI_SHAPE pair img / mask is written to `tmp` beside it."""
     from ife_tpu_torch.cli.main import main
     from ife_tpu_torch.core.volume import Volume
     from ife_tpu_torch.io import read_volume, write_volume
@@ -1414,11 +1438,19 @@ def phase_main(tmp):
     )
     from ife_tpu_torch.ops.stencil import hessian
 
-    shape, sp = (256, 256, 128), FULL_SPACING
-    img, mask = _inputs(shape, 1, "cpu")
-    img_path, mask_path = os.path.join(tmp, "img.nii.gz"), os.path.join(tmp, "mask.nii.gz")
-    write_volume(img_path, Volume(img, spacing=sp))
-    write_volume(mask_path, Volume(mask.to(torch.uint8), spacing=sp))
+    sp = FULL_SPACING
+
+    def write_pair(shape, prefix):
+        img, mask = _inputs(shape, 1, "cpu")
+        paths = [os.path.join(tmp, f"{prefix}{n}.nii.gz")
+                 for n in ("img", "mask")]
+        write_volume(paths[0], Volume(img, spacing=sp))
+        write_volume(paths[1], Volume(mask.to(torch.uint8), spacing=sp))
+        return img, mask, paths
+
+    write_pair(CLI_SHAPE, "")
+    shape = tuple(cli_shape)
+    img, mask, (img_path, mask_path) = write_pair(shape, "cli_")
     big_img, big_mask = _inputs(FULL, 2, "cuda")
     torch.cuda.synchronize()
 
@@ -1448,8 +1480,13 @@ def phase_main(tmp):
     del hess
     branches = {s: features8_dispatch_branch(s, FULL_SPACING, FULL)
                 for s in (0.6, 1.2, 2.4, 4.8)}
-    say("main", f"CLI {t_cli:.1f} s on {shape}; branches {branches}; "
-        f"launches {launches}")
+    cli_branches = {s: features8_dispatch_branch(s, FULL_SPACING, shape)
+                    for s in (0.6, 2.4)}
+    say("main", f"CLI {t_cli:.1f} s on {shape} (branches {cli_branches}); "
+        f"branches at {FULL} {branches}; launches {launches}")
+    if cli_branches != {0.6: "sweep", 2.4: "xs_stream"}:
+        raise PhaseError(f"the CLI's scales on {shape} reach {cli_branches}, "
+                         "not the sweep and xs_stream")
     missing = [k for k in FEATURE_PATH if launches.get(k, 0) < 1]
     if missing:
         raise PhaseError(f"feature path launched no {missing} kernel")
@@ -1530,7 +1567,7 @@ def phase_bags(tmp):
     from ife_tpu_torch.roi.bag import make_bag, make_bag_device
     from ife_tpu_torch.stats.equalize import determine_edges_for_equalized_histogram
 
-    shape = (256, 256, 128)
+    shape = CLI_SHAPE
     path = lambda name: os.path.join(tmp, name)  # noqa: E731
     img3, _ = _inputs(shape, 3, "cpu")
     write_volume(path("img3.nii.gz"), Volume(img3, spacing=FULL_SPACING))
@@ -2356,6 +2393,98 @@ def phase_multiscale(big_img, big_mask):
     return launches
 
 
+GRAFT_PATH = ("features8_sweep", "features8_sweep_clamps", "histogram")
+
+
+def phase_graft():
+    """graft_entry_torch.py's two entry points on the card, counters reset
+    first: entry()'s fn on its 64^3 inputs (the sweep kernel), then
+    dryrun_multichip(4) and dryrun_step(4) (a 2 x 2 block mesh in this
+    process: the sweep with clamps, the histogram kernel). fn's output
+    against the plain f64 ops and the sweep's twin; the gathered features at
+    both scales bit-equal to the sweep's twin and to the single-device
+    kernel on the whole volume, the counts equal to the plain histogram
+    (searchsorted and scatter_add) of the gathered smoothed channel.
+    Returns the counts."""
+    import graft_entry_torch as G
+    from ife_tpu_torch.core.volume import sphere_mask, synthetic_ct
+    from ife_tpu_torch.kernels import (
+        LAUNCHES, features8_sweep_plain, reset_launches,
+    )
+    from ife_tpu_torch.ops.features import features8, features8_auto_channels
+    from ife_tpu_torch.stats.histogram import histogram_counts_plain
+
+    reset_launches()
+    fn, (img, mask) = G.entry()
+    got = fn(img, mask)
+    G.dryrun_multichip(4)
+    feats, counts, dims = G.dryrun_step(4)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    say("graft", f"entry() on {img.device}, dryrun_multichip(4) and "
+        f"dryrun_step(4) on a {dims} mesh: launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    missing = [k for k in GRAFT_PATH if launches.get(k, 0) < 1]
+    if missing:
+        raise PhaseError(f"graft_entry_torch launched no {missing} kernel")
+
+    if tuple(got.shape) != G.ENTRY_SHAPE + (8,) or got.device.type != "cuda":
+        raise PhaseError(f"entry: output {tuple(got.shape)} on {got.device}")
+    chans = got.unbind(-1)
+    if not all(bool(torch.isfinite(c).all()) for c in chans):
+        raise PhaseError("entry: output not finite")
+    if bool(got[mask == 0].any()):
+        raise PhaseError("entry: nonzero output outside the mask")
+    twin = features8_sweep_plain(img, mask, G.ENTRY_SIGMA, G.ENTRY_SPACING)
+    if not bit_equal(chans, twin):
+        raise PhaseError("entry: differs from the sweep's plain twin")
+    # against the plain f64 ops: every channel but the eigenvalues within
+    # TOL; the eigenvalues, whose value-sorted f32 triples carry a sqrt(ulp)
+    # floor at the synthetic CT's ties (as in phase_main), within TOL or
+    # twice the plain f32 ops' distance, also per channel outside ties
+    rest, eig = (0, 1, 5, 6, 7), (2, 3, 4)
+    want = features8(img.double(), mask, G.ENTRY_SIGMA,
+                     G.ENTRY_SPACING).unbind(-1)
+    plain32 = features8(img, mask, G.ENTRY_SIGMA, G.ENTRY_SPACING).unbind(-1)
+    e_rest, _ = feature_errors([chans[i] for i in rest],
+                               [want[i] for i in rest], ())
+    e_plain, _ = feature_errors([plain32[i] for i in eig],
+                                [want[i] for i in eig])
+    bound = max(TOL, 2 * e_plain)
+    e_eig, _ = feature_errors([chans[i] for i in eig], [want[i] for i in eig],
+                              tol=bound)
+    if e_rest > TOL or e_eig > bound:
+        raise PhaseError(f"entry: {e_rest:.2e} / {e_eig:.2e} (eigenvalues) "
+                         f"from the f64 plain ops")
+
+    shape = tuple(feats.shape[:3])
+    vol = synthetic_ct(shape, seed=1, device="cuda").data
+    msk = sphere_mask(shape, 0.45, device="cuda").data
+    for i, sigma in enumerate(G.DRYRUN_SIGMAS):
+        got_s = feats[..., i, :].unbind(-1)
+        if not bit_equal(got_s, features8_sweep_plain(vol, msk, sigma,
+                                                      G.DRYRUN_SPACING)):
+            raise PhaseError(f"dryrun_step(4) s={sigma}: differs from the "
+                             "sweep's plain twin on the whole volume")
+        if not bit_equal(got_s, features8_auto_channels(vol, msk, sigma,
+                                                        G.DRYRUN_SPACING)):
+            raise PhaseError(f"dryrun_step(4) s={sigma}: differs from the "
+                             "single-device kernel")
+    want_counts = histogram_counts_plain(feats[..., 0, 0], G.DRYRUN_EDGES,
+                                         (msk != 0).to(torch.int32))
+    if not torch.equal(counts, want_counts):
+        raise PhaseError(f"dryrun_step(4): counts {counts.tolist()} against "
+                         f"the plain histogram {want_counts.tolist()}")
+    say("graft", f"entry: bit-equal to the sweep's twin; from the f64 plain "
+        f"ops: other channels {e_rest:.2e}, eigenvalues {e_eig:.2e} (sorted "
+        f"triples and per channel outside ties; the plain f32 ops, sorted: "
+        f"{e_plain:.2e}); dryrun {shape} at sigma {G.DRYRUN_SIGMAS}: "
+        "bit-equal to the sweep's twin and to the single-device kernel, "
+        f"counts {counts.tolist()} equal to the plain histogram of the "
+        "gathered smoothed channel")
+    return launches
+
+
 def _expect_launches(label, want):
     """Raise unless the launch counters hold exactly `want` (every other
     counter 0): a route that silently took another kernel, or a plain twin,
@@ -2462,9 +2591,10 @@ def sharded_stats_checks(img_np, mask_np, meshes, edges, rois):
 
 
 def phase_sharded_cli(tmp):
-    """The three --sharded routes on the 256x256x128 pair, 4 blocks in this
-    process, against the unsharded runs of phases main and bags (their
-    files are in tmp). Returns the launches."""
+    """The three --sharded routes, 4 blocks in this process, against the
+    unsharded runs of phases main and bags (their files are in tmp):
+    extract-features on phase main's CLI pair, make-bag and
+    determine-bin-edges on the CLI_SHAPE pair. Returns the launches."""
     import numpy as np
 
     from ife_tpu_torch.cli.main import main
@@ -2474,8 +2604,9 @@ def phase_sharded_cli(tmp):
 
     path = lambda name: os.path.join(tmp, name)  # noqa: E731
     shard = ["--sharded", "--blocks", "4"]
-    runs = [["extract-features", "-i", path("img.nii.gz"), "-m",
-             path("mask.nii.gz"), "-o", path("sfeat"), "-s", "0.6", "2.4", *shard],
+    runs = [["extract-features", "-i", path("cli_img.nii.gz"), "-m",
+             path("cli_mask.nii.gz"), "-o", path("sfeat"), "-s", "0.6", "2.4",
+             *shard],
             ["make-bag", "-i", path("img.nii.gz"), "-m", path("mask.nii.gz"),
              "-b", path("spec.txt"), "-s", "0.6", "2.4", "-n", "50",
              "--roi-size", "41,41,41", "--seed", "0", "-o", path("sbag"), *shard],
@@ -4252,6 +4383,22 @@ def main() -> int:
         budget.report()
         return 0
 
+    if sys.argv[1:2] == ["--cli-full"]:
+        budget = Budget()
+        try:
+            budget.enter("device")
+            phase_device()
+            budget.enter("build")
+            phase_build()
+            budget.enter("main")
+            with tempfile.TemporaryDirectory(prefix="ife_chip_smoke_") as tmp:
+                phase_main(tmp, CLI_SHAPE)
+        except PhaseError as e:
+            print(f"chip_smoke: --cli-full failed: {e}", file=sys.stderr)
+            return 1
+        budget.report()
+        return 0
+
     if sys.argv[1:2] == ["--profile"]:
         try:
             phase_build()
@@ -4319,9 +4466,11 @@ def main() -> int:
             raise PhaseError(f"sharded path launched no {missing} kernel")
         phase = budget.enter("multiscale")
         multi_launches = phase_multiscale(img, mask)
+        phase = budget.enter("graft")
+        graft_launches = phase_graft()
         launches = {k: launches[k] + bag_launches[k] + tool_launches[k]
                     + dicom_launches[k] + multi_launches[k]
-                    + shard_launches[k] for k in launches}
+                    + shard_launches[k] + graft_launches[k] for k in launches}
         phase = budget.enter("full")
         results = {}
         phase_full(img, mask, errs, results)
@@ -4358,7 +4507,7 @@ def main() -> int:
     except PhaseError as e:
         print(f"chip_smoke: phase {phase} failed: {e}", file=sys.stderr)
         return 1
-    # launches: counted in phase 4 (the five paths' runs added) and on the
+    # launches: counted in phase 4 (the six paths' runs added) and on the
     # probe path; ms, plain_ms, max_abs_err and library_ms: measured at
     # 512^3 (at REPORT_SIGMA for the smoothing kernels, YS_SIGMAS /
     # SWEEP_SIGMAS for the multi-scale ones, the config-4 shape for the

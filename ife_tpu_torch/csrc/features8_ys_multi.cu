@@ -11,7 +11,7 @@
 // is a tap-ordered FIR over shared memory, in this kernel's own code:
 // out[y] = sum_k t[k] * in[clamp(y + k - r)], the same numbers as a row of
 // that band matrix times the column, in the association of the plain twin
-// (ops/stencil.py gaussian_smooth_axis), so the kernel equals its twin to the
+// (ops/stencil.py kernel_smooth_axis), so the kernel equals its twin to the
 // bit (the library is built without FMA contraction).
 //
 // A block owns one scale (blockIdx.z carries scale and x chunk), a (y, z)

@@ -5,7 +5,7 @@
 // memory and reads through a TapsView. Each output of a pass is
 // sum_k t[k] * in[clamp(i + k - r)], accumulated in tap order k = 0..2r with
 // f32 taps rounded once from the f64 numpy taps: the association of the plain
-// twin's shifted-slice sum (ops/stencil.py gaussian_smooth_axis).
+// twin's shifted-slice sum (ops/stencil.py kernel_smooth_axis).
 #pragma once
 
 #include <algorithm>

@@ -42,7 +42,7 @@ from ife_tpu_torch.kernels._build import (
 from ife_tpu_torch.kernels.features8_post import features8_post_plain
 from ife_tpu_torch.kernels.hessian_eig import stencil_reciprocals
 from ife_tpu_torch.kernels.normalized_conv import MAX_RADIUS, smooth_yz_plain
-from ife_tpu_torch.ops.stencil import gaussian_smooth_axis, smooth_taps
+from ife_tpu_torch.ops.stencil import kernel_smooth_axis, smooth_taps
 
 # csrc/sweep_passes.cuh: the s region a block owns (its (y, z) tile plus a
 # one-voxel halo), the shared memory a block may take, and the x radii the
@@ -200,8 +200,8 @@ def features8_xs_stream_plain(num_yz: torch.Tensor, den_yz: torch.Tensor,
     (clamped at `clamps`, four ints, for the sweep's twin). Tuple of eight
     (X, Y, Z) tensors."""
     hx = float(spacing[0])
-    s = (gaussian_smooth_axis(num_yz, 0, sigma, hx, truncate)
-         / gaussian_smooth_axis(den_yz, 0, sigma, hx, truncate))
+    s = (kernel_smooth_axis(num_yz, 0, sigma, hx, truncate)
+         / kernel_smooth_axis(den_yz, 0, sigma, hx, truncate))
     faces = None if clamps is None else (clamps[:2], clamps[2:])
     return features8_post_plain(s, mask, spacing, faces=faces)
 

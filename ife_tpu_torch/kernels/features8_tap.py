@@ -42,8 +42,10 @@ from ife_tpu_torch.kernels.features8_sweep import (
     features8_sweep_plain,
 )
 from ife_tpu_torch.kernels.hessian_eig import stencil_reciprocals
-from ife_tpu_torch.kernels.normalized_conv import MAX_RADIUS, fused_smooth_yz
-from ife_tpu_torch.ops.stencil import normalized_gaussian_convolution, smooth_taps
+from ife_tpu_torch.kernels.normalized_conv import (
+    MAX_RADIUS, fused_smooth_yz, normalized_conv_plain,
+)
+from ife_tpu_torch.ops.stencil import smooth_taps
 
 # csrc/features8_tap.cu: the tap's (x, z) tile and the xs kernel's (y, z)
 # tile are the sweep's (its s region _SY x _SZ); the xs kernel computes
@@ -120,7 +122,7 @@ def features8_tap_plain(image: torch.Tensor, mask: torch.Tensor, sigma: float,
     order), then the post-smoothing tail, masked by a select. Tuple of eight
     (X, Y, Z) tensors."""
     m = torch.clamp(mask.to(image.dtype), 0, 1)
-    s = normalized_gaussian_convolution(image, m, sigma, spacing, truncate)
+    s = normalized_conv_plain(image, m, sigma, spacing, truncate)
     return features8_post_plain(s, m, spacing)
 
 

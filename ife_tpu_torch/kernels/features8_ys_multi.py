@@ -26,7 +26,7 @@ from ife_tpu_torch.kernels._build import (
 from ife_tpu_torch.kernels.features8_post import features8_post_plain
 from ife_tpu_torch.kernels.hessian_eig import stencil_reciprocals
 from ife_tpu_torch.kernels.normalized_conv import MAX_RADIUS
-from ife_tpu_torch.ops.stencil import gaussian_smooth_axis, smooth_taps
+from ife_tpu_torch.ops.stencil import kernel_smooth_axis, smooth_taps
 
 
 def features8_ys_multi_plain(nums, dens, mask: torch.Tensor, sigmas,
@@ -38,8 +38,8 @@ def features8_ys_multi_plain(nums, dens, mask: torch.Tensor, sigmas,
     hy = float(spacing[1])
     groups = []
     for num, den, sigma in zip(nums, dens, sigmas):
-        s = (gaussian_smooth_axis(num, 1, float(sigma), hy, truncate)
-             / gaussian_smooth_axis(den, 1, float(sigma), hy, truncate))
+        s = (kernel_smooth_axis(num, 1, float(sigma), hy, truncate)
+             / kernel_smooth_axis(den, 1, float(sigma), hy, truncate))
         groups.append(features8_post_plain(s, mask, spacing))
     return tuple(groups)
 

@@ -35,9 +35,7 @@ import torch
 from ife_tpu_torch.kernels._build import (
     check_cuda_volume, launch, use_plain_twin,
 )
-from ife_tpu_torch.ops.stencil import (
-    gaussian_smooth_axis, normalized_gaussian_convolution, smooth_taps,
-)
+from ife_tpu_torch.ops.stencil import kernel_smooth_axis, smooth_taps
 
 MAX_RADIUS = 128  # csrc/normalized_conv.cu kMaxTaps = 2 * 128 + 1
 # csrc/normalized_conv.cu: the z pass's outputs a thread, threads a block,
@@ -68,9 +66,11 @@ def normalized_conv_plain(image: torch.Tensor, certainty: torch.Tensor,
                           spacing: Sequence[float] = (1.0, 1.0, 1.0),
                           truncate: float = 4.5) -> torch.Tensor:
     """The kernel's plain twin: ops.stencil.normalized_gaussian_convolution
-    (tap-ordered shifted-slice sums along x, y, z; no epsilon)."""
-    return normalized_gaussian_convolution(image, certainty, sigma, spacing,
-                                           truncate)
+    with the kernel's tap-ordered sums (kernel_smooth_axis) along x, y, z;
+    no epsilon."""
+    num, den = _smooth_pair_plain(image, certainty, (0, 1, 2), sigma,
+                                  spacing, truncate)
+    return num / den
 
 
 def _c_taps(taps):
@@ -189,7 +189,7 @@ def _smooth_pair_plain(image, certainty, axes, sigma, spacing, truncate):
 
     def two(v):
         for d in axes:
-            v = gaussian_smooth_axis(v, d, sigma, float(spacing[d]), truncate)
+            v = kernel_smooth_axis(v, d, sigma, float(spacing[d]), truncate)
         return v
 
     return two(image * c), two(c)

@@ -253,6 +253,70 @@ def test_gate_needs_three_branches(monkeypatch):
         B.verify_on_card((16, 16, 16), device="cpu")
 
 
+F32_SLACK = 1.25  # how much farther from f64 a port path may sit
+F32_PATHS = ("ife_tpu kernel", "ife_tpu ops", "port twin", "port ops",
+             "port ops in tap order")
+
+
+def f32_distances(shape, sigmas=(2.4, 4.8)):
+    """bench.py's gate metric (_worst) of four f32 paths from one reference,
+    the port's composed ops in f64, on the gate's inputs of `shape`
+    (gate_inputs on the CPU) at the gate's two ys_multi scales: ife_tpu's
+    multiscale_features8_fused (its Pallas kernel in interpret mode),
+    ife_tpu's features8 (XLA ops), the port's multiscale_features8_fused
+    (the ys_multi kernel's twins) and the port's features8; beside them the
+    port's features8 with its Gaussian summed in the kernels' tap order
+    (kernel_smooth_axis), as the port summed it before ops.stencil._fir.
+    {sigma: {path: (worst, per-channel errors)}}."""
+    from unittest import mock
+
+    from ife_tpu_torch.ops import stencil as TS
+    from ife_tpu_torch.ops.features import (
+        features8, multiscale_features8_fused)
+
+    img, msk = B.gate_inputs(tuple(shape), "cpu")
+    ji, jm = jnp.asarray(img.numpy()), jnp.asarray(msk.numpy())
+    j_multi = torch.from_numpy(np.array(JO.multiscale_features8_fused(
+        ji, jm, sigmas, SPACING, interpret=True, stack=True)))
+    t_multi = multiscale_features8_fused(img, msk, sigmas, SPACING)
+    out = {}
+    for k, sigma in enumerate(sigmas):
+        ref = features8(img.double(), msk.double(), sigma, SPACING).unbind(-1)
+        with mock.patch.object(TS, "gaussian_smooth_axis",
+                               TS.kernel_smooth_axis):
+            tap_order = features8(img, msk, sigma, SPACING)
+        paths = zip(F32_PATHS, (
+            j_multi[k].unbind(0),
+            torch.from_numpy(np.array(JO.features8(ji, jm, sigma, SPACING))
+                             ).unbind(-1),
+            t_multi[k].unbind(0),
+            features8(img, msk, sigma, SPACING).unbind(-1),
+            tap_order.unbind(-1)))
+        out[sigma] = {name: (B._worst(got, ref), B._feature_errs(got, ref)[0])
+                      for name, got in paths}
+    return out
+
+
+@pytest.fixture(scope="module")
+def f32_distances_48():
+    return f32_distances((48, 48, 48))
+
+
+@pytest.mark.parametrize("sigma", [2.4, 4.8])
+def test_f32_paths_sit_no_farther_from_f64_than_ife_tpus(f32_distances_48,
+                                                         sigma):
+    """At 48^3: the twin of the ys_multi kernel no farther from f64 than
+    ife_tpu's Pallas kernel, the port's f32 composed ops no farther than
+    ife_tpu's f32 composed ops, each within F32_SLACK. The composed ops'
+    Gaussian sums each pair of samples that shares a tap first and the pairs
+    from the outermost tap in (ops.stencil._fir); summed in tap order, as
+    the kernels sum, they sat 1.5x (sigma 2.4) and 2.1x (4.8) as far as
+    ife_tpu's here, and the second assert failed."""
+    d = {name: worst for name, (worst, _) in f32_distances_48[sigma].items()}
+    assert d["port twin"] <= F32_SLACK * d["ife_tpu kernel"], d
+    assert d["port ops"] <= F32_SLACK * d["ife_tpu ops"], d
+
+
 # ---------------------------------------------------------------------------
 # the script
 # ---------------------------------------------------------------------------
@@ -391,3 +455,17 @@ def test_without_a_card_the_script_exits_non_zero():
     assert res.returncode != 0
     assert "IFE_PLATFORM=cpu" in res.stderr
     assert res.stdout == ""
+
+
+if __name__ == "__main__":
+    # PYTHONPATH=. python tests/test_torch_bench.py [N]: f32_distances at
+    # N^3 (default the gate's 128^3), on the CPU under x64 as the tests run
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    n = int(sys.argv[1]) if len(sys.argv) > 1 else B.GATE_SHAPE[0]
+    for sigma, paths in f32_distances((n, n, n)).items():
+        for name, (worst, per_channel) in paths.items():
+            print(f"{n}^3 sigma {sigma} {name}: {worst:.4e}; per channel "
+                  + " ".join(f"{e:.2e}" for e in per_channel))

@@ -1215,3 +1215,28 @@ def test_bench_torch_gate_passes_on_the_card(cuda):
     assert bench_torch.GATE_SHAPE == (128, 128, 128)
     assert all(v < bench_torch.TOL for v in report.values()), report
     assert len({k.split("[")[1] for k in report if k.startswith("auto_s")}) >= 3
+
+
+def test_graft_entry_runs_the_kernels_on_the_card(cuda, monkeypatch):
+    # graft_entry_torch.py's entry() through the sweep kernel (bit-equal to
+    # its twin) and dryrun_multichip(4) on a 2 x 2 block mesh through the
+    # sweep with clamps and the histogram kernel, counted
+    import graft_entry_torch as G
+
+    monkeypatch.delenv("IFE_PLATFORM", raising=False)
+    K.reset_launches()
+    fn, (img, mask) = G.entry()
+    got = fn(img, mask)
+    assert img.is_cuda and got.is_cuda
+    assert tuple(got.shape) == G.ENTRY_SHAPE + (8,)
+    assert K.LAUNCHES["features8_sweep"] == 1
+    twin = K.features8_sweep_plain(img, mask, G.ENTRY_SIGMA, G.ENTRY_SPACING)
+    assert all(_same(g, t) for g, t in zip(got.unbind(-1), twin))
+    K.reset_launches()
+    G.dryrun_multichip(4)
+    assert K.LAUNCHES["features8_sweep_clamps"] >= 1
+    assert K.LAUNCHES["histogram"] >= 1
+    feats, counts, dims = G.dryrun_step(4, device=cuda)
+    assert dims == (2, 2) and feats.is_cuda
+    assert int(counts.sum()) == int((sphere_mask(feats.shape[:3], 0.45).data
+                                     != 0).sum())

@@ -290,9 +290,9 @@ def test_z_plan_covers_every_row_within_a_block(Z):
 def test_axis_pass_emulation_is_the_twin_one_over_a_tile(axis, r):
     """The paired weighted pass and the single pass on 129 positions along
     the axis (one over kAxisTileA), 33 z (one over kAxisTileZ): each output
-    of G_axis (c*f), G_axis c and G_axis s equals gaussian_smooth_axis to
-    the bit, every tap group form taken (r < 4: nt < kAxisRun)."""
-    from ife_tpu_torch.ops.stencil import gaussian_smooth_axis
+    of G_axis (c*f), G_axis c and G_axis s equals the twins' kernel_smooth_axis
+    to the bit, every tap group form taken (r < 4: nt < kAxisRun)."""
+    from ife_tpu_torch.ops.stencil import kernel_smooth_axis
 
     shape = [3, 3, 33]
     shape[axis] = 129
@@ -302,10 +302,10 @@ def test_axis_pass_emulation_is_the_twin_one_over_a_tile(axis, r):
     t, got_r = _taps(sigma, h, img.dtype)
     assert got_r == r
     num, den = _axis_pass((img, m), axis, t, r, True)
-    assert _same(num, gaussian_smooth_axis(img * m, axis, sigma, h))
-    assert _same(den, gaussian_smooth_axis(m, axis, sigma, h))
+    assert _same(num, kernel_smooth_axis(img * m, axis, sigma, h))
+    assert _same(den, kernel_smooth_axis(m, axis, sigma, h))
     (s,) = _axis_pass((img,), axis, t, r, False)
-    assert _same(s, gaussian_smooth_axis(img, axis, sigma, h))
+    assert _same(s, kernel_smooth_axis(img, axis, sigma, h))
 
 
 @pytest.mark.parametrize("Z", [1, 2, 5, 127, 513, 1025])
@@ -314,14 +314,14 @@ def test_z_pass_emulation_is_the_twin(Z, r):
     """Both forms of the z pass, in place and with the divide into num's
     storage, on rows of one z, a partial run, several rows a block and two
     chunks (1025): G_z num, G_z den and their quotient to the bit."""
-    from ife_tpu_torch.ops.stencil import gaussian_smooth_axis
+    from ife_tpu_torch.ops.stencil import kernel_smooth_axis
 
     img, m = _inputs((2, 3, Z))
     num, den = img * m, m + 0.5
     h = 4.5 / (r - 0.5)
     t, _ = _taps(1.0, h, img.dtype)
-    want_n = gaussian_smooth_axis(num, 2, 1.0, h)
-    want_d = gaussian_smooth_axis(den, 2, 1.0, h)
+    want_n = kernel_smooth_axis(num, 2, 1.0, h)
+    want_d = kernel_smooth_axis(den, 2, 1.0, h)
     got_n, got_d = _z_pass(num, den, t, r, False)
     assert _same(got_n, want_n) and _same(got_d, want_d)
     assert _same(_z_pass(num, den, t, r, True), want_n / want_d)
