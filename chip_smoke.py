@@ -3964,8 +3964,11 @@ def kernel_breakdown(fn, calls=3, attempts=3):
                 torch.cuda.synchronize()
                 prof.step()
         counts, us = {}, {}
-        for ev in events:  # the steps' own spans on the card are no work
+        for ev in events:
+            # the ranges of record_function on the card are no work: the
+            # steps' own and the program's spans (utils.profiling.span)
             if (ev.device_type != DeviceType.CUDA or ev.device_time_total <= 0
+                    or getattr(ev, "is_user_annotation", False)
                     or ev.name.startswith("ProfilerStep")):
                 continue
             counts[ev.name] = counts.get(ev.name, 0) + 1

@@ -152,11 +152,11 @@ def run_extract_features(args):
             # each channel is gathered to the primary alone and written
             # there before the next is gathered
             with stage_timer(f"features8[s={s:g}] sharded, gathered and "
-                             "written", voxels=img.numel(), emit=True):
+                             "written", work=img.numel(), emit=True):
                 features8_sharded_channels_to(img, msk, float(s), mesh, write,
                                               vol.spacing)
         else:
-            with stage_timer(f"features8[s={s:g}]", voxels=img.numel(),
+            with stage_timer(f"features8[s={s:g}]", work=img.numel(),
                              emit=True):
                 feats = [c.cpu() for c in features8_auto_channels(
                     img, msk, float(s), vol.spacing)]

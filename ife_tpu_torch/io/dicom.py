@@ -324,7 +324,7 @@ def convert_dicom_dir(dicom_dir: str, out_dir: str) -> List[str]:
 
     written = []
     for uid, paths in sorted(series.items()):
-        # two spans a series in utils.profiling's registry:
+        # two spans a series in utils.profiling's store:
         # "convert-dicom decode <uid>" (parse, decode, rescale) and
         # "convert-dicom write <uid>" (the gzip-9 NIfTI write)
         with stage_timer(f"convert-dicom decode {uid}"):
@@ -335,7 +335,7 @@ def convert_dicom_dir(dicom_dir: str, out_dir: str) -> List[str]:
         ).replace(" ", "-").replace("/", "-")
         out_path = os.path.join(out_dir, f"{name}.nii.gz")
         with stage_timer(f"convert-dicom write {uid}",
-                         voxels=vol.data.numel()):
+                         work=vol.data.numel()):
             write_volume(out_path, vol)
         written.append(out_path)
     return written

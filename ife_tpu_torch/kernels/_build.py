@@ -26,6 +26,8 @@ from pathlib import Path
 
 import torch
 
+from ife_tpu_torch.utils.profiling import stage_timer
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent.parent / "build" / "ife_tpu_torch"
 # --fmad=false: no a*b+c is contracted into an FMA, so each rounds twice
@@ -157,14 +159,17 @@ def build() -> Path:
     returns its path. Each source compiles in its own nvcc process, all
     started together, then one nvcc links the objects. Raises with nvcc's
     stderr when the build fails. The compiler's report (-Xptxas -v:
-    registers, spills) is kept beside the library as build.log."""
+    registers, spills) is kept beside the library as build.log. A build
+    prints one "kernels.build" stage line with its seconds and its number
+    of .cu files."""
     out = library_path()
     if out.is_file():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     cus, _ = _sources()
     nvcc = find_nvcc()
-    with tempfile.TemporaryDirectory(dir=out.parent) as work:
+    with stage_timer("kernels.build", work=len(cus), emit=True), \
+            tempfile.TemporaryDirectory(dir=out.parent) as work:
         objs = [str(Path(work) / (cu.stem + ".o")) for cu in cus]
         logs = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(cu)]
                          for cu, o in zip(cus, objs)])

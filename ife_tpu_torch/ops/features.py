@@ -52,6 +52,7 @@ from ife_tpu_torch.ops.stencil import (
     hessian,
     normalized_gaussian_convolution,
 )
+from ife_tpu_torch.utils.profiling import span
 
 FEATURE_NAMES = (
     "GaussianBlur",
@@ -160,6 +161,11 @@ def normalized_convolution_auto(image, certainty, sigma,
         tuple(spacing), truncate)
 
 
+# the span each branch of fused_features8 records (utils.profiling.span)
+_BRANCH_SPANS = {"sweep": "features.sweep", "xs_stream": "features.xs_stream",
+                 "nc_conv+post": "features.nc_post"}
+
+
 def fused_features8(image, mask, sigma, spacing=(1.0, 1.0, 1.0),
                     truncate=4.5, stack=True, branch=None):
     """features8 through the kernels (counterpart of ife_tpu's
@@ -174,22 +180,26 @@ def fused_features8(image, mask, sigma, spacing=(1.0, 1.0, 1.0),
     if branch is None:
         branch = features8_dispatch_branch(sigma, spacing, image.shape,
                                            truncate)
-    elif branch not in ("sweep", "xs_stream", "nc_conv+post"):
+    elif branch not in _BRANCH_SPANS:
         raise ValueError(f"fused_features8: no branch {branch!r}")
-    if branch == "sweep":
-        # the sweep clamps the mask itself: no clamp pass over the volume
-        if mask.dtype in _CLAMP_AS:
-            mask = mask.to(_CLAMP_AS[mask.dtype])
-        return fused_features8_sweep(
-            image, mask.to(image.dtype).contiguous(), sigma, spacing,
-            truncate, stack=stack)
-    mf = clamp_mask(mask).to(image.dtype).contiguous()
-    if branch == "xs_stream":
-        num, den = fused_smooth_yz(image, mf, sigma, spacing, truncate)
-        return fused_features8_xs_stream(num, den, mf, sigma, spacing,
-                                         truncate, stack=stack)
-    s = fused_normalized_conv_sweep(image, mf, sigma, spacing, truncate)
-    return fused_features8_post_stream(s, mf, spacing, stack=stack)
+    dev, voxels = image.device, image.numel()
+    with span(_BRANCH_SPANS[branch], device=dev, work=voxels):
+        if branch == "sweep":
+            # the sweep clamps the mask itself: no clamp pass over the volume
+            with span("features.mask", device=dev, work=voxels):
+                if mask.dtype in _CLAMP_AS:
+                    mask = mask.to(_CLAMP_AS[mask.dtype])
+                mf = mask.to(image.dtype).contiguous()
+            return fused_features8_sweep(image, mf, sigma, spacing, truncate,
+                                         stack=stack)
+        with span("features.mask", device=dev, work=voxels):
+            mf = clamp_mask(mask).to(image.dtype).contiguous()
+        if branch == "xs_stream":
+            num, den = fused_smooth_yz(image, mf, sigma, spacing, truncate)
+            return fused_features8_xs_stream(num, den, mf, sigma, spacing,
+                                             truncate, stack=stack)
+        s = fused_normalized_conv_sweep(image, mf, sigma, spacing, truncate)
+        return fused_features8_post_stream(s, mf, spacing, stack=stack)
 
 
 def features8_auto_channels(image, mask, sigma, spacing=(1.0, 1.0, 1.0),

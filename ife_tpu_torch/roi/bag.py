@@ -27,6 +27,7 @@ from ife_tpu_torch.native_lib import histogram_channels_native
 from ife_tpu_torch.ops.features import NUM_FEATURES, features8_auto_channels
 from ife_tpu_torch.parallel.mesh import default_device
 from ife_tpu_torch.roi.generate import ROI
+from ife_tpu_torch.utils.profiling import span
 
 
 def _check_hist_spec(hist_edges: Sequence[np.ndarray], n_expected: int) -> int:
@@ -51,15 +52,20 @@ def _roi_frequencies(values: np.ndarray, edges: np.ndarray) -> np.ndarray:
         return counts / total
 
 
-def _device_inputs(image, mask, dtype, device):
-    """The image as `dtype` and the mask clamped to {0, 1}, on `device`."""
+def _clamped_mask(mask) -> np.ndarray:
+    """The mask clamped to {0, 1} on the host."""
     mask_np = np.clip(np.asarray(mask), 0, 1)
     if mask_np.dtype.kind in "bu":
         # 0/1 after the clip: uint8 keeps the values and has every torch op
         mask_np = mask_np.astype(np.uint8)
+    return mask_np
+
+
+def _to_device(image, mask_np, dtype, device):
+    """The image as `dtype` and the clamped mask, copied to `device`."""
     img = torch.from_numpy(np.ascontiguousarray(image)).to(device=device,
                                                           dtype=dtype)
-    return img.contiguous(), torch.from_numpy(mask_np).to(device), mask_np
+    return img.contiguous(), torch.from_numpy(mask_np).to(device)
 
 
 def _edges_block(hist_edges, i) -> np.ndarray:
@@ -87,7 +93,8 @@ def make_bag(
     """
     hist_size = _check_hist_spec(hist_edges, NUM_FEATURES * len(sigmas))
     dev = default_device(device)
-    img, msk, mask_np = _device_inputs(image, mask, dtype, dev)
+    mask_np = _clamped_mask(mask)
+    img, msk = _to_device(image, mask_np, dtype, dev)
     bag = np.zeros((len(rois), hist_size * len(hist_edges)), dtype=np.float64)
     roi_masks = [mask_np[r.slices()] != 0 for r in rois]
 
@@ -190,23 +197,42 @@ def make_bag_device(
     (n_rois, histSize * 8 * n_scales) layout and bin semantics as
     make_bag; the frequencies are f32 (counts / masked voxels), as
     ife_tpu's make_bag_device gives them. Mixed ROI sizes run one
-    histogram_boxes call per size class."""
+    histogram_boxes call per size class.
+
+    Spans (utils.profiling.span, recorded under torch.profiler): "bag",
+    the call; "bag.stage", the inputs' staging, with "bag.stage.clip" (the
+    mask's clamp on the host) and "bag.stage.h2d" (the copies to the
+    device); per scale and size class "bag.bin", the binning, and
+    "bag.fetch", the host waiting for its frequencies. Only "bag.bin"
+    records device events: the others are read on the host's clock."""
     classes = _size_classes(rois)
     hist_size = _check_hist_spec(hist_edges, NUM_FEATURES * len(sigmas))
     dev = default_device(device)
-    img, msk, _ = _device_inputs(image, mask, dtype, dev)
-    starts_np = np.asarray([r.index for r in rois], np.int64).reshape(-1, 3)
-    bag = np.zeros((len(rois), hist_size * NUM_FEATURES * len(sigmas)),
-                   dtype=np.float64)
-    for i, sigma in enumerate(sigmas):
-        feats = features8_auto_channels(img, msk, float(sigma), tuple(spacing))
-        edges = _round_edges_f32(_edges_block(hist_edges, i), feats[0].dtype)
-        col0 = i * NUM_FEATURES * hist_size
-        for size, idxs in classes:
-            freqs = roi_feature_histograms_device(
-                feats, msk, starts_np[idxs], edges, size)
-            bag[idxs, col0 : col0 + NUM_FEATURES * hist_size] = (
-                freqs.cpu().numpy().astype(np.float64).reshape(len(idxs), -1))
+    with span("bag", work=len(rois)):
+        with span("bag.stage"):
+            with span("bag.stage.clip"):
+                mask_np = _clamped_mask(mask)
+            with span("bag.stage.h2d",
+                      work=np.asarray(image).nbytes + mask_np.nbytes):
+                img, msk = _to_device(image, mask_np, dtype, dev)
+        starts_np = np.asarray([r.index for r in rois],
+                               np.int64).reshape(-1, 3)
+        bag = np.zeros((len(rois), hist_size * NUM_FEATURES * len(sigmas)),
+                       dtype=np.float64)
+        for i, sigma in enumerate(sigmas):
+            feats = features8_auto_channels(img, msk, float(sigma),
+                                            tuple(spacing))
+            edges = _round_edges_f32(_edges_block(hist_edges, i),
+                                     feats[0].dtype)
+            col0 = i * NUM_FEATURES * hist_size
+            for size, idxs in classes:
+                with span("bag.bin", device=dev, work=len(idxs)):
+                    freqs = roi_feature_histograms_device(
+                        feats, msk, starts_np[idxs], edges, size)
+                with span("bag.fetch", work=len(idxs)):
+                    bag[idxs, col0 : col0 + NUM_FEATURES * hist_size] = (
+                        freqs.cpu().numpy().astype(np.float64)
+                        .reshape(len(idxs), -1))
     return bag
 
 

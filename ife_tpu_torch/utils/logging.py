@@ -1,5 +1,5 @@
 """Leveled logging + structured JSON metric lines (ife_tpu/utils/logging.py,
-which has no JAX in it, carried over as is).
+which has no JAX in it, carried over with the port's rank variable).
 
 stdlib logging with a process-role prefix plus one-line JSON metric records
 that downstream tooling can grep.
@@ -17,7 +17,8 @@ _FMT = "%(asctime)s %(levelname).1s %(name)s] %(message)s"
 
 
 def _process_tag() -> str:
-    idx = os.environ.get("JAX_PROCESS_INDEX")
+    # the rank that parallel/launcher.py's distributed_init reads
+    idx = os.environ.get("IFE_PROCESS_ID")
     return f"p{idx}" if idx is not None else ""
 
 

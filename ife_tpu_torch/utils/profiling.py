@@ -1,16 +1,27 @@
-"""Per-stage timing/throughput metrics (counterpart of
-ife_tpu/utils/profiling.py).
+"""Spans and stage timers of the port, in one store (counterpart of
+ife_tpu/utils/profiling.py), and the yardsticks that time the card.
 
-`stage_timer` wraps a pipeline stage and:
-  * marks it as an NVTX range when CUDA is in use, so a device profile
-    groups kernels by pipeline stage (ife_tpu used
-    jax.profiler.TraceAnnotation for the same purpose);
-  * records wall time and voxel throughput into a StageMetrics registry,
-    synchronising the CUDA device at both ends so the time covers the
-    device work queued inside the stage, not just its enqueue;
-  * optionally emits a JSON metrics line per stage.
+`span(name, device=None, work=None)` marks a piece of the program's work.
+It records only while torch.profiler is recording in the calling thread;
+otherwise it costs its call and one flag check. While it records it
+  * enters torch.profiler.record_function(name), so the span is a
+    `user_annotation` of the profiler's trace, on the clock of the trace's
+    kernel and memcpy records (under torch.autograd.profiler.emit_nvtx() an
+    NVTX range);
+  * appends a StageRecord to the store: host start and end ns, the index
+    of its parent span and of its request (the outermost span open), a
+    count of its work (voxels, bytes, ROIs), and, when `device` is a CUDA
+    device, a pair of timing events on the current stream.
+No span synchronises the device or reads an event: the events are read
+when the store is, by `span_device_ms` and `span_self_device_ms`
+(`spans(name)` lists the records, `span_host_ms` reads the host clock's).
 
-Beside it, the yardsticks chip_smoke.py and bench_torch.py time the card
+`stage_timer` is the CLI's always-on stage timer: it synchronises the CUDA
+device at both ends, so its time covers the device work queued inside the
+stage, records into the same store and the same record_function, and can
+emit a JSON metrics line.
+
+Beside them, the yardsticks chip_smoke.py and bench_torch.py time the card
 with (one copy, so the two cannot drift apart): `cuda_ms`, a call on an
 idle card as its caller waits for it; `device_ms`, back-to-back calls behind
 queued work, the card's own time; `wall_ms`, the host clock's counterpart of
@@ -21,44 +32,72 @@ from __future__ import annotations
 
 import contextlib
 import subprocess
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import torch
+from torch.profiler import record_function
 
 from ife_tpu_torch.utils.logging import log_json
+
+_profiler_enabled = torch._C._autograd._profiler_enabled
 
 
 @dataclass
 class StageRecord:
+    """One span: host ns on time.perf_counter_ns's clock, its own index in
+    the store, its parent's (None at the root) and its request's (the
+    outermost span open when it began; its own at the root), its work, and
+    its (start, end) CUDA events or None."""
     name: str
-    seconds: float
-    voxels: Optional[int] = None
+    index: int
+    start_ns: int
+    end_ns: int = 0
+    parent: Optional[int] = None
+    request: int = 0
+    work: Optional[int] = None
+    events: Optional[tuple] = None
 
     @property
-    def voxels_per_sec(self) -> Optional[float]:
-        if self.voxels is None or self.seconds <= 0:
-            return None
-        return self.voxels / self.seconds
+    def seconds(self) -> float:
+        return (self.end_ns - self.start_ns) * 1e-9
 
 
 @dataclass
 class StageMetrics:
+    """The store: records in the order their spans began."""
     records: List[StageRecord] = field(default_factory=list)
+    _lock: threading.Lock = field(default_factory=threading.Lock,
+                                  repr=False, compare=False)
+    _local: threading.local = field(default_factory=threading.local,
+                                    repr=False, compare=False)
 
-    def add(self, rec: StageRecord) -> None:
-        self.records.append(rec)
+    def _open_spans(self) -> List[int]:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
 
-    def summary(self) -> Dict[str, Dict[str, float]]:
-        out: Dict[str, Dict[str, float]] = {}
-        for r in self.records:
-            s = out.setdefault(r.name, {"seconds": 0.0, "calls": 0})
-            s["seconds"] += r.seconds
-            s["calls"] += 1
-            if r.voxels_per_sec is not None:
-                s["voxels_per_sec"] = r.voxels_per_sec
-        return out
+    def open(self, name: str, work: Optional[int] = None,
+             events: Optional[tuple] = None) -> int:
+        """Begin a record in the calling thread; returns its index."""
+        stack = self._open_spans()
+        with self._lock:
+            i = len(self.records)
+            self.records.append(StageRecord(
+                name, i, time.perf_counter_ns(),
+                parent=stack[-1] if stack else None,
+                request=stack[0] if stack else i, work=work, events=events))
+        stack.append(i)
+        return i
+
+    def close(self, i: int) -> StageRecord:
+        rec = self.records[i]
+        rec.end_ns = time.perf_counter_ns()
+        self._open_spans().remove(i)
+        return rec
 
 
 _global_metrics = StageMetrics()
@@ -68,39 +107,104 @@ def global_metrics() -> StageMetrics:
     return _global_metrics
 
 
+class span:
+    """A span of the program's work (see the module's docstring): records
+    into global_metrics() while torch.profiler records in this thread."""
+
+    __slots__ = ("name", "device", "work", "_index", "_fn", "_events")
+
+    def __init__(self, name: str, device=None, work: Optional[int] = None):
+        self.name, self.device, self.work = name, device, work
+        self._index = None
+
+    def __enter__(self):
+        if not _profiler_enabled():
+            return self
+        self._fn = record_function(self.name)
+        self._fn.__enter__()
+        self._events = None
+        if self.device is not None and torch.device(self.device).type == "cuda":
+            stream = torch.cuda.current_stream(self.device)
+            self._events = (torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True))
+            self._events[0].record(stream)
+        self._index = _global_metrics.open(self.name, self.work, self._events)
+        return self
+
+    def __exit__(self, *exc):
+        if self._index is None:
+            return False
+        if self._events is not None:
+            self._events[1].record(torch.cuda.current_stream(self.device))
+        _global_metrics.close(self._index)
+        self._index = None
+        self._fn.__exit__(*exc)
+        return False
+
+
+def spans(name: Optional[str] = None) -> List[StageRecord]:
+    """The store's records, or those named `name`, in the order they began."""
+    return [r for r in _global_metrics.records if name is None or r.name == name]
+
+
+def span_host_ms(rec: StageRecord) -> float:
+    return (rec.end_ns - rec.start_ns) * 1e-6
+
+
+def span_device_ms(rec: StageRecord) -> Optional[float]:
+    """The device ms between the span's two events (waiting for the end
+    event), or None for a span without events."""
+    if rec.events is None:
+        return None
+    start, end = rec.events
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def span_self_device_ms(rec: StageRecord) -> Optional[float]:
+    """span_device_ms less what the span's children cover on the device:
+    the children of one span run one after another on its stream, so that
+    is the sum of their device ms."""
+    total = span_device_ms(rec)
+    if total is None:
+        return None
+    for r in _global_metrics.records[rec.index + 1:]:
+        if r.start_ns > rec.end_ns:
+            break
+        if r.parent == rec.index and r.events is not None:
+            total -= span_device_ms(r)
+    return total
+
+
 def _cuda_in_use() -> bool:
     # never initialises CUDA itself: a CPU-only run stays CPU-only
     return torch.cuda.is_available() and torch.cuda.is_initialized()
 
 
 @contextlib.contextmanager
-def stage_timer(
-    name: str,
-    voxels: Optional[int] = None,
-    metrics: Optional[StageMetrics] = None,
-    emit: bool = False,
-):
-    """Time a pipeline stage; marks it as an NVTX range on CUDA.
+def stage_timer(name: str, work: Optional[int] = None, emit: bool = False):
+    """Time a pipeline stage into the store (a root span where no span is
+    open) under record_function(name), whether or not a profiler runs.
 
     The clock is read after a device synchronise at entry and at exit, so
-    the recorded time includes the device work the stage queued.
+    the recorded time includes the device work the stage queued. `emit`
+    prints {"event": "stage", "stage": name, "seconds": s[, "work": n]}.
     """
-    m = metrics if metrics is not None else _global_metrics
-    cuda = _cuda_in_use()
-    if cuda:
+    m = _global_metrics
+    if _cuda_in_use():
         torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with torch.cuda.nvtx.range(name) if cuda else contextlib.nullcontext():
-        yield
-        if _cuda_in_use():
-            torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    rec = StageRecord(name=name, seconds=dt, voxels=voxels)
-    m.add(rec)
+    with record_function(name):
+        i = m.open(name, work)
+        try:
+            yield
+            if _cuda_in_use():
+                torch.cuda.synchronize()
+        finally:
+            rec = m.close(i)
     if emit:
-        payload = {"stage": name, "seconds": round(dt, 6)}
-        if rec.voxels_per_sec is not None:
-            payload["voxels_per_sec"] = round(rec.voxels_per_sec, 1)
+        payload = {"stage": name, "seconds": round(rec.seconds, 6)}
+        if work is not None:
+            payload["work"] = work
         log_json("stage", payload)
 
 
