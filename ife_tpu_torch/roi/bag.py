@@ -27,6 +27,7 @@ from ife_tpu_torch.native_lib import histogram_channels_native
 from ife_tpu_torch.ops.features import NUM_FEATURES, features8_auto_channels
 from ife_tpu_torch.parallel.mesh import default_device
 from ife_tpu_torch.roi.generate import ROI
+from ife_tpu_torch.utils import staging
 from ife_tpu_torch.utils.profiling import span
 
 
@@ -53,19 +54,56 @@ def _roi_frequencies(values: np.ndarray, edges: np.ndarray) -> np.ndarray:
 
 
 def _clamped_mask(mask) -> np.ndarray:
-    """The mask clamped to {0, 1} on the host."""
-    mask_np = np.clip(np.asarray(mask), 0, 1)
-    if mask_np.dtype.kind in "bu":
+    """The mask clamped to {0, 1} on the host: a bool or unsigned mask as
+    uint8, any other in its own dtype."""
+    mask = np.asarray(mask)
+    if mask.dtype.kind == "f":
+        # np.clip's clamped zero keeps the sign of -0.0 in some numpy
+        # versions and not in others: here NaN stays and -0.0 and all below
+        # 0 become +0.0, as _clamp_staged_mask gives them on the device
+        return np.where(mask <= 0, 0, np.where(mask >= 1, 1, mask)).astype(
+            mask.dtype, copy=False)
+    out = np.clip(mask, 0, 1)
+    if mask.dtype.kind in "bu":
         # 0/1 after the clip: uint8 keeps the values and has every torch op
-        mask_np = mask_np.astype(np.uint8)
-    return mask_np
+        out = out.astype(np.uint8, copy=False)
+    return out
 
 
-def _to_device(image, mask_np, dtype, device):
-    """The image as `dtype` and the clamped mask, copied to `device`."""
-    img = torch.from_numpy(np.ascontiguousarray(image)).to(device=device,
-                                                          dtype=dtype)
-    return img.contiguous(), torch.from_numpy(mask_np).to(device)
+def _clamp_staged_mask(m: torch.Tensor, kind: str) -> torch.Tensor:
+    """_clamped_mask's dtype and values from the mask as it crossed: `kind`
+    is the numpy kind of the caller's mask; a bool or unsigned mask crossed
+    as the signed integer of its width."""
+    if kind in "bu":
+        return (m != 0).view(torch.uint8)
+    if m.is_floating_point():
+        return torch.where(m <= 0, 0, torch.where(m >= 1, 1, m))
+    return m.clamp(0, 1)
+
+
+def _device_inputs(image, mask, dtype, device):
+    """The image as `dtype` and the mask as _clamped_mask gives it, on
+    `device`. Each crosses once, as the caller holds it (a bool or unsigned
+    mask as the signed integer of its width), through utils/staging.py's
+    ring of page-locked buffers on the card; the mask's clamp runs on the
+    device.
+
+    Spans: "bag.stage.h2d" (work: the bytes that cross) over
+    "bag.stage.pinned" (work: those that go through the ring; 0 on the CPU
+    and for an array that is not C-contiguous)."""
+    image, mask = np.asarray(image), np.asarray(mask)
+    kind = mask.dtype.kind
+    if kind in "bu":
+        mask = mask.view(f"i{mask.itemsize}")
+    with span("bag.stage.h2d",
+              work=staging.staged_nbytes(image, dtype) + mask.nbytes):
+        with span("bag.stage.pinned",
+                  work=staging.ring_nbytes(image, device, dtype)
+                  + staging.ring_nbytes(mask, device)):
+            img = staging.to_device(image, device, dtype)
+            msk = staging.to_device(mask, device)
+        msk = _clamp_staged_mask(msk, kind)
+    return img, msk
 
 
 def _edges_block(hist_edges, i) -> np.ndarray:
@@ -93,10 +131,10 @@ def make_bag(
     """
     hist_size = _check_hist_spec(hist_edges, NUM_FEATURES * len(sigmas))
     dev = default_device(device)
-    mask_np = _clamped_mask(mask)
-    img, msk = _to_device(image, mask_np, dtype, dev)
+    mask = np.asarray(mask)
+    img, msk = _device_inputs(image, mask, dtype, dev)
     bag = np.zeros((len(rois), hist_size * len(hist_edges)), dtype=np.float64)
-    roi_masks = [mask_np[r.slices()] != 0 for r in rois]
+    roi_masks = [_clamped_mask(mask[r.slices()]) != 0 for r in rois]
 
     for i, sigma in enumerate(sigmas):
         feats = [c.cpu().numpy() for c in features8_auto_channels(
@@ -200,21 +238,17 @@ def make_bag_device(
     histogram_boxes call per size class.
 
     Spans (utils.profiling.span, recorded under torch.profiler): "bag",
-    the call; "bag.stage", the inputs' staging, with "bag.stage.clip" (the
-    mask's clamp on the host) and "bag.stage.h2d" (the copies to the
-    device); per scale and size class "bag.bin", the binning, and
-    "bag.fetch", the host waiting for its frequencies. Only "bag.bin"
-    records device events: the others are read on the host's clock."""
+    the call; "bag.stage", the inputs' staging (_device_inputs:
+    "bag.stage.h2d" over "bag.stage.pinned"); per scale and size class
+    "bag.bin", the binning, and "bag.fetch", the host waiting for its
+    frequencies. Only "bag.bin" records device events: the others are read
+    on the host's clock."""
     classes = _size_classes(rois)
     hist_size = _check_hist_spec(hist_edges, NUM_FEATURES * len(sigmas))
     dev = default_device(device)
     with span("bag", work=len(rois)):
         with span("bag.stage"):
-            with span("bag.stage.clip"):
-                mask_np = _clamped_mask(mask)
-            with span("bag.stage.h2d",
-                      work=np.asarray(image).nbytes + mask_np.nbytes):
-                img, msk = _to_device(image, mask_np, dtype, dev)
+            img, msk = _device_inputs(image, mask, dtype, dev)
         starts_np = np.asarray([r.index for r in rois],
                                np.int64).reshape(-1, 3)
         bag = np.zeros((len(rois), hist_size * NUM_FEATURES * len(sigmas)),
