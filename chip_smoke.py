@@ -13,6 +13,8 @@
     python3 chip_smoke.py --hist-times [ROOT]    # the histogram's 512^3
                                         # shapes, call ms and device ms, of
                                         # the checkout under ROOT
+    python3 chip_smoke.py --dense       # phase 5's dense bag of one lung
+                                        # alone (phase_full_dense)
     python3 chip_smoke.py --dispatch-table   # phase 5's table of the three
                                         # features8 branches alone
     python3 chip_smoke.py --probes [mode...]  # the probe phase alone (modes:
@@ -175,7 +177,12 @@ failing phase exits non-zero:
               under the sphere and bench.py's random 75% mask, at E = 1 and
               on conflict-free values; 1 and 8 channels of 4096 edges; 50
               ROIs of 41^3 per sigma, beside the feature pass), each against
-              its twin; tap and xs beside the sweep;
+              its twin; the dense bag of one lung (phase_full_dense:
+              make_bag_dense_device at 512^3, an ROI of 41^3 at each of the
+              ~4.5 M voxels of an ellipsoid lung of the benchmark lung's
+              extent, 4 scales, 32 bins; its launches counted, one scale's
+              rows bit-equal to dense_counts_plain's, the kernels' call and
+              device ms beside the twin's); tap and xs beside the sweep;
               every shard mode beside its whole-volume mode; the 4-block
               and 2 x 2 sharded pass beside the single-device pass;
      probes   the probe path (kernels/probes.py and the copy-floor variants
@@ -375,12 +382,24 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     # hessian_eig_features, XLA ops there (no Pallas kernel)
     "hessian_eig_reference": ("ife_tpu_torch/csrc/hessian_eig.cu",
                               "ife_tpu/ops/features.py:357"),
+    # the box histograms at every start of a dense bag: ife_tpu bins a
+    # dense bag box by box through its histogram kernel
+    "dense_hist": ("ife_tpu_torch/csrc/dense_hist.cu",
+                   "ife_tpu/kernels/histogram.py:83"),
 }
 # the kernels each main path must launch
 FEATURE_PATH = ("hessian_eig", "normalized_conv", "features8_post",
                 "features8_sweep", "features8_xs_stream", "smooth_yz",
                 "hessian_eig_reference")
 BAG_PATH = ("histogram",)  # and the kernels of the branches at 0.6 / 2.4
+# phase 5's dense bag: one lung of the benchmark's scans (ifebench/inputs.py:
+# a lung's centres span 147 x 203 x 291 voxels, 4.5-5.4 M of them) as an
+# ellipsoid (centre, semi-axes) in the 512^3 volume, 41^3 ROIs, 32 bins at
+# every scale of SIGMAS, the scale whose rows are held against the twin
+DENSE_LUNG = ((166, 256, 256), (73, 101, 145))
+DENSE_SIZE = (41, 41, 41)
+DENSE_BINS = 32
+DENSE_CHECK_SIGMA = 1.2
 MULTISCALE_PATH = ("smooth_xz", "features8_ys_multi", "features8_sweep_multi",
                    "normalized_conv_tiled", "features8_post_windowed")
 SHARDED_PATH = ("features8_sweep_clamps", "normalized_conv",
@@ -415,6 +434,9 @@ LIBRARY = {
                              "pad and a conv3d (TF32 by default), not one call"),
     "features8_tap_copyfloor": ("none: a clamp, a product and eight adds, "
                                 "one call each"),
+    "dense_hist": ("none: a search, box sums of each bin's indicator and a "
+                   "divide (dense_counts_plain: a one-hot, three cumsums and "
+                   "eight corners a box), not one call"),
 }
 # sharded against single-device where the two take different passes (sigma
 # 2.4): two f32 passes of one function, each within TOL of the f64 ops
@@ -3169,12 +3191,14 @@ def fir_ops(sigma, axes):
                for a in axes)
 
 
-def kernel_bounds(nvox, hist_work):
+def kernel_bounds(nvox, hist_work, dense_work):
     """name -> (bound_ms, bound_by): the least time the card could take for
     each kernel's work at the shape its ms was measured at. Bytes: each
     input volume read once, each output written once. Operations: the FIR's
     multiplies and adds for this run's radii, the c*f product and the divide
-    where the kernel has them, TAIL_OPS for the tail."""
+    where the kernel has them, TAIL_OPS for the tail. hist_work and
+    dense_work: (bytes, operations) of the histogram's and the dense bag's
+    shapes, counted by their phases."""
     vol, r = 4 * nvox, REPORT_SIGMA
     nc_ops = (fir_ops(r["normalized_conv"], (0, 1, 2)) + 2) * nvox
     work = {
@@ -3188,6 +3212,7 @@ def kernel_bounds(nvox, hist_work):
                                                    (0,)) + 1 + TAIL_OPS) * nvox),
         "smooth_yz": (4 * vol, (fir_ops(r["smooth_yz"], (1, 2)) + 1) * nvox),
         "histogram": hist_work,
+        "dense_hist": dense_work,
         "smooth_xz": (4 * vol, (fir_ops(r["smooth_xz"], (0, 2)) + 1) * nvox),
         "normalized_conv_tiled": (3 * vol, nc_ops),
         "features8_post_windowed": (10 * vol, TAIL_OPS * nvox),
@@ -3479,6 +3504,142 @@ def phase_full_hist(img, mask, errs, results):
         torch.cuda.empty_cache()
     print(card_line(), flush=True)
     return hist_work
+
+
+def dense_lung(shape, device):
+    """The uint8 ellipsoid of DENSE_LUNG in a volume of `shape`."""
+    (cx, cy, cz), (ax, ay, az) = DENSE_LUNG
+    x, y, z = (torch.arange(n, dtype=torch.float32, device=device)
+               for n in shape)
+    r = (((x - cx) / ax) ** 2)[:, None, None] \
+        + (((y - cy) / ay) ** 2)[None, :, None] \
+        + (((z - cz) / az) ** 2)[None, None, :]
+    return (r <= 1).to(torch.uint8)
+
+
+def phase_full_dense(img, errs, results):
+    """The dense bag of one lung at 512^3, as the main path runs it:
+    make_bag_dense_device with the launch counters reset first (DENSE_SIZE
+    ROIs at every voxel of the DENSE_LUNG ellipsoid, SIGMAS, DENSE_BINS bins
+    of edges from each scale's channels in the lung, as determine-bin-edges
+    draws them from masked voxels); its starts the lung's voxels less
+    half a box, in z, y, x order, as many as the lung has; at
+    DENSE_CHECK_SIGMA its rows bit-equal to the plain twin's
+    (dense_counts_plain's counts over the boxes' counts, divided in f32);
+    then dense_hist_rows alone on the same inputs, bit-equal again, on both
+    yardsticks beside the twin's call ms, and once more with edges from
+    the whole volume's channels, which crowd the lung's values into fewer
+    bins (the fullest bin's mean frequency printed for both). Returns
+    (launches, (bytes, operations) of one scale): the region's 8 f32
+    channels and 1 B mask read once and the rows written once; a divide a
+    frequency and a binary search a channel voxel of the region."""
+    from ife_tpu_torch.kernels import LAUNCHES, reset_launches
+    from ife_tpu_torch.kernels.dense_hist import (
+        dense_counts_plain, dense_hist_rows, dense_index,
+    )
+    from ife_tpu_torch.ops.features import features8_auto_channels
+    from ife_tpu_torch.roi.bag import (
+        _edges_block, _round_edges_f32, make_bag_dense_device,
+    )
+
+    dev = img.device
+    lung = dense_lung(tuple(img.shape), dev)
+    w = lung != 0
+    voxels = int(w.sum())
+    edges = []
+    for sigma in SIGMAS:
+        feats = features8_auto_channels(img, lung, sigma, FULL_SPACING)
+        edges += list(hist_edges([c[w] for c in feats],
+                                 DENSE_BINS - 1).numpy())
+    del feats
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    starts, rows = make_bag_dense_device(img, lung, SIGMAS, edges, DENSE_SIZE,
+                                         FULL_SPACING, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    if launches["dense_hist"] != len(SIGMAS):
+        raise PhaseError(f"dense bag: {launches['dense_hist']} dense_hist "
+                         f"launches for {len(SIGMAS)} scales")
+    n = starts.shape[0]
+    half = torch.as_tensor([s // 2 for s in DENSE_SIZE], device=dev)
+    centres = starts + half
+    key = (centres[:, 2] * img.shape[1] + centres[:, 1]) * img.shape[0] \
+        + centres[:, 0]
+    if n != voxels or not bool(w[tuple(centres.T)].all()) \
+            or not bool((key[1:] > key[:-1]).all()):
+        raise PhaseError(f"dense bag: {n} starts for a lung of {voxels} "
+                         "voxels, or starts off the lung or out of order")
+    say("full", f"dense bag of one lung: {n} ROIs of {DENSE_SIZE} x "
+        f"{rows.shape[1]} columns in {wall:.3f} s "
+        f"(make_bag_dense_device, {len(SIGMAS)} scales, rows on the card; "
+        f"the first call of the process), launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+
+    i = SIGMAS.index(DENSE_CHECK_SIGMA)
+    feats = features8_auto_channels(img, lung, DENSE_CHECK_SIGMA,
+                                    FULL_SPACING)
+    e = _round_edges_f32(_edges_block(edges, i), feats[0].dtype)
+    index = dense_index(w, w, DENSE_SIZE)
+
+    def plain():
+        counts = dense_counts_plain(feats, w, index.starts, DENSE_SIZE, e)
+        return (counts.to(torch.float32)
+                / index.totals.view(-1, 1, 1).to(torch.float32)).reshape(n, -1)
+
+    want = plain()
+    width = want.shape[1]
+    got = rows[:, i * width:(i + 1) * width]
+    if not torch.equal(got, want):
+        raise PhaseError(f"dense bag s={DENSE_CHECK_SIGMA}: rows differ from "
+                         "the plain twin's")
+    del starts, rows, got
+    torch.cuda.empty_cache()
+    out = torch.empty_like(want)
+    reset_launches()
+
+    def kern():
+        dense_hist_rows(feats, w, index, DENSE_SIZE, e, out)
+
+    kern()
+    torch.cuda.synchronize()
+    if LAUNCHES["dense_hist"] != 1:
+        raise PhaseError(f"dense_hist_rows: {LAUNCHES['dense_hist']} launches")
+    rel, ab = kernel_check("dense_hist", out, want)
+    errs["dense_hist"].append(rel)
+    km, kd = timed_both(f"s={DENSE_CHECK_SIGMA} dense_hist_rows, {n} ROIs",
+                        kern)
+    pm = timed(f"s={DENSE_CHECK_SIGMA} dense_counts_plain and the divide",
+               plain)
+    results["dense_hist"] = dict(ms=km, device_ms=kd, plain_ms=pm,
+                                 max_abs_err=ab)
+    region = math.prod(a + s - 1 for a, s in zip(index.row_at.shape,
+                                                 DENSE_SIZE))
+    nbytes = region * (8 * 4 + 1) + n * width * 4
+    ops = n * width + region * 8 * math.ceil(math.log2(DENSE_BINS))
+    say("full", f"s={DENSE_CHECK_SIGMA} dense_hist_rows equal to its twin: "
+        f"region {region} voxels, {nbytes / 1e9:.2f} GB moved -> "
+        f"{nbytes / 1e6 / kd:.0f} GB/s on the device yardstick")
+
+    def fullest():
+        return float(out.view(n, 8, -1).mean(0).max())
+
+    lung_share = fullest()
+    e_vol = _round_edges_f32(hist_edges(feats, DENSE_BINS - 1).numpy(),
+                             feats[0].dtype)
+    _, vd = timed_both(f"s={DENSE_CHECK_SIGMA} dense_hist_rows, edges from "
+                       "the whole volume's channels",
+                       lambda: dense_hist_rows(feats, w, index, DENSE_SIZE,
+                                               e_vol, out))
+    say("full", f"the fullest bin's mean frequency: {lung_share:.3f} with the "
+        f"lung's edges ({kd:.3f} device ms), {fullest():.3f} with the whole "
+        f"volume's ({vd:.3f} device ms)")
+    del feats, want, out, index
+    torch.cuda.empty_cache()
+    print(card_line(), flush=True)
+    return launches, (nbytes, ops)
 
 
 def probe_pairs(img, mask, width=4):
@@ -4370,6 +4531,23 @@ def main() -> int:
             return 1
         return 0
 
+    if sys.argv[1:2] == ["--dense"]:
+        try:
+            phase_device()
+            phase_build()
+            img, _ = _inputs(FULL, 2, "cuda")
+            results = {}
+            launches, work = phase_full_dense(img, {"dense_hist": []}, results)
+            bound = kernel_bounds(img.numel(), (0, 0), work)["dense_hist"]
+            print(json.dumps({"dense": dict(
+                launches=launches["dense_hist"], **results["dense_hist"],
+                bound_ms=bound[0], bound_by=bound[1], library_ms=None)}),
+                flush=True)
+        except PhaseError as e:
+            print(f"chip_smoke: --dense failed: {e}", file=sys.stderr)
+            return 1
+        return 0
+
     if sys.argv[1:2] == ["--dicom"]:
         budget = Budget()
         try:
@@ -4484,7 +4662,9 @@ def main() -> int:
         phase_full_multi(img, mask, errs, results)
         phase_full_modes(img, mask, errs, results)
         hist_work = phase_full_hist(img, mask, errs, results)
-        bounds = kernel_bounds(img.numel(), hist_work)
+        dense_launches, dense_work = phase_full_dense(img, errs, results)
+        launches = {k: launches[k] + dense_launches[k] for k in launches}
+        bounds = kernel_bounds(img.numel(), hist_work, dense_work)
         phase = budget.enter("probes")
         probe_launches = probe_path(img, mask)
         launches = {k: launches[k] + probe_launches[k] for k in launches}
@@ -4510,12 +4690,13 @@ def main() -> int:
     except PhaseError as e:
         print(f"chip_smoke: phase {phase} failed: {e}", file=sys.stderr)
         return 1
-    # launches: counted in phase 4 (the six paths' runs added) and on the
-    # probe path; ms, plain_ms, max_abs_err and library_ms: measured at
-    # 512^3 (at REPORT_SIGMA for the smoothing kernels, YS_SIGMAS /
-    # SWEEP_SIGMAS for the multi-scale ones, the config-4 shape for the
-    # histogram); bound_ms: computed from the same shapes; max_rel_err: the
-    # worst of phases 3, 5 and probes
+    # launches: counted in phase 4 (the six paths' runs added), in phase
+    # 5's dense bag and on the probe path; ms, plain_ms, max_abs_err and
+    # library_ms: measured at 512^3 (at REPORT_SIGMA for the smoothing
+    # kernels, YS_SIGMAS / SWEEP_SIGMAS for the multi-scale ones, the
+    # config-4 shape for the histogram, one scale of the dense bag's lung
+    # for dense_hist); bound_ms: computed from the same shapes;
+    # max_rel_err: the worst of phases 3, 5 and probes
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep,
              launches=launches[name], **results[name],

@@ -361,25 +361,47 @@ def conf_make_bag_dense(p):
     p.add_argument("-s", "--scales", type=float, nargs="+", required=True)
     p.add_argument("--roi-size", type=_triple, default=(41, 41, 41),
                    metavar="X,Y,Z")
+    p.add_argument("--device", action="store_true",
+                   help="bin every ROI on the device (the dense box-histogram "
+                   "kernels on CUDA); the rows are fetched in chunks")
+
+
+# rows a dense bag fetches from the device at a time for its CSV
+DENSE_FETCH_ROWS = 65536
 
 
 def run_make_bag_dense(args):
     """Reference tools/MakeBagDense.cxx: every foreground voxel is an ROI
-    center (DenseROIGenerator). make_bag bins every ROI on the host, so this
-    is for small masks."""
+    center (DenseROIGenerator). make_bag bins every ROI on the host, so that
+    route is for small masks; --device runs make_bag_dense_device and
+    writes the same files from its rows, fetched DENSE_FETCH_ROWS at a
+    time."""
     from ife_tpu_torch.io import read_hist_spec, write_matrix_csv, write_rois
-    from ife_tpu_torch.roi import generate_dense_rois, make_bag
+    from ife_tpu_torch.roi import ROI, generate_dense_rois, make_bag
+    from ife_tpu_torch.roi.bag import make_bag_dense_device
 
     vol = _load(args.image)
     mask = _load(args.mask)
     edges = read_hist_spec(args.hist_spec)
     mask_np = mask.numpy()
-    rois = generate_dense_rois(mask_np, args.roi_size)
-    bag = make_bag(vol.numpy(), mask_np, args.scales, edges, rois,
-                   spacing=vol.spacing)
-    write_matrix_csv(f"{args.out}.bag", bag)
+    if args.device:
+        starts, rows = make_bag_dense_device(vol.numpy(), mask_np, args.scales,
+                                             edges, args.roi_size,
+                                             spacing=vol.spacing)
+        size = tuple(int(s) for s in args.roi_size)
+        rois = [ROI(tuple(st), size) for st in starts.cpu().tolist()]
+        write_matrix_csv(f"{args.out}.bag", (
+            rows[i:i + DENSE_FETCH_ROWS].cpu().numpy()
+            for i in range(0, rows.shape[0], DENSE_FETCH_ROWS)))
+        n, cols = rows.shape
+    else:
+        rois = generate_dense_rois(mask_np, args.roi_size)
+        bag = make_bag(vol.numpy(), mask_np, args.scales, edges, rois,
+                       spacing=vol.spacing)
+        write_matrix_csv(f"{args.out}.bag", bag)
+        n, cols = bag.shape
     write_rois(f"{args.out}.ROIInfo", rois)
-    _progress(f"Wrote {bag.shape[0]} ROIs x {bag.shape[1]} columns")
+    _progress(f"Wrote {n} ROIs x {cols} columns")
 
 
 def conf_make_bag_only_intensity(p):

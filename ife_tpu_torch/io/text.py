@@ -70,15 +70,19 @@ def read_pair_list(path: str, sep: str = ",") -> List[Tuple[str, str]]:
     return out
 
 
-def write_matrix_csv(path: str, matrix: np.ndarray) -> None:
+def write_matrix_csv(path: str, matrix) -> None:
     """Bag CSV format: comma columns, newline rows, no trailing comma
-    (reference tools/MakeBag.cxx:475-486)."""
+    (reference tools/MakeBag.cxx:475-486), each value as C++ ostream's
+    default formatting writes it: 6 significant digits. `matrix` is an
+    array, or an iterator of arrays whose rows follow one another. A row is
+    formatted in one `%` of its values (twice the rate of a format a
+    value)."""
+    blocks = [matrix] if isinstance(matrix, (np.ndarray, list, tuple)) \
+        else matrix
     with open(path, "w") as f:
-        for row in np.asarray(matrix):
-            f.write(",".join(_shortest(v) for v in row))
-            f.write("\n")
-
-
-def _shortest(v) -> str:
-    """C++ ostream default formatting: 6 significant digits."""
-    return f"{float(v):.6g}"
+        for block in blocks:
+            rows = np.asarray(block, np.float64)
+            if not len(rows):
+                continue
+            line = ",".join(["%.6g"] * rows.shape[1]) + "\n"
+            f.writelines(line % tuple(row) for row in rows.tolist())

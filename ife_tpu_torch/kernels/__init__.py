@@ -26,6 +26,11 @@ and of ife_tpu/kernels/histogram.py:
   (-> histogram_counts_kernel), plus the per-ROI
   binning (-> histogram_boxes)                -> csrc/histogram.cu
 
+and, with no ife_tpu counterpart (ife_tpu bins a dense bag box by box):
+
+  dense_hist_rows (every ROI of MakeBagDense's
+  dense grid, kernels/dense_hist.py)          -> csrc/dense_hist.cu
+
 of benchmarks/ (the roofline probes, kernels/probes.py):
 
   trivial6, pcopy1                            -> csrc/probes.cu

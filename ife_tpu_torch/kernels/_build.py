@@ -69,7 +69,8 @@ LAUNCHES = dict.fromkeys(
     ("hessian_eig", "normalized_conv", "features8_post", "features8_sweep",
      "features8_xs_stream", "smooth_yz", "histogram", "smooth_xz",
      "features8_post_windowed", "features8_ys_multi", "features8_sweep_multi",
-     "features8_tap", "features8_xs", "pcopy1", "trivial6", *COUNTED_AS), 0)
+     "features8_tap", "features8_xs", "pcopy1", "trivial6", "dense_hist",
+     *COUNTED_AS), 0)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
@@ -102,6 +103,8 @@ _SIGNATURES = {
                         + [_P],
     "ife_pcopy1": [_P, _P, _I, _I, _F, _P],
     "ife_trivial6": [_P] * 7 + [_I, _I] + [_F] * 6 + [_P],
+    "ife_dense_hist": [_P, _I, _P, _P] + [_I] * 10 + [_P, _P] + [_I] * 3
+                      + [_P, _P] + [_I] * 5 + [_P],
 }
 
 MAX_TAPS = 257    # csrc/fir.cuh kMaxTaps: radius <= 128 voxels

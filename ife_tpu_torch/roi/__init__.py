@@ -3,4 +3,8 @@ from ife_tpu_torch.roi.generate import (  # noqa: F401
     generate_random_rois,
     generate_dense_rois,
 )
-from ife_tpu_torch.roi.bag import make_bag, make_bag_device  # noqa: F401
+from ife_tpu_torch.roi.bag import (  # noqa: F401
+    make_bag,
+    make_bag_dense_device,
+    make_bag_device,
+)

@@ -14,6 +14,14 @@ Two forms, as in ife_tpu:
     and ROI size class, which on the card is one launch of the histogram
     kernel for every ROI of the class; only the (n_rois, 8, bins) frequency
     block returns to the host.
+
+make_bag_dense_device is MakeBagDense's dense bag on the device: an ROI at
+every foreground voxel, binned by kernels/dense_hist.py's running box sums,
+its rows left on the device.
+
+The device forms take the scan as host arrays, staged through
+utils/staging.py's ring, or as tensors already on the target device, used
+in place.
 """
 from __future__ import annotations
 
@@ -22,6 +30,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from ife_tpu_torch.kernels.dense_hist import dense_hist_rows, dense_index
 from ife_tpu_torch.kernels.histogram import _edges_f32_round_down, histogram_boxes
 from ife_tpu_torch.native_lib import histogram_channels_native
 from ife_tpu_torch.ops.features import NUM_FEATURES, features8_auto_channels
@@ -81,12 +90,12 @@ def _clamp_staged_mask(m: torch.Tensor, kind: str) -> torch.Tensor:
     return m.clamp(0, 1)
 
 
-def _device_inputs(image, mask, dtype, device):
+def _device_inputs(image, mask, dtype, device, keep_raw=False):
     """The image as `dtype` and the mask as _clamped_mask gives it, on
     `device`. Each crosses once, as the caller holds it (a bool or unsigned
     mask as the signed integer of its width), through utils/staging.py's
     ring of page-locked buffers on the card; the mask's clamp runs on the
-    device.
+    device. `keep_raw` appends the mask as it crossed.
 
     Spans: "bag.stage.h2d" (work: the bytes that cross) over
     "bag.stage.pinned" (work: those that go through the ring; 0 on the CPU
@@ -101,9 +110,42 @@ def _device_inputs(image, mask, dtype, device):
                   work=staging.ring_nbytes(image, device, dtype)
                   + staging.ring_nbytes(mask, device)):
             img = staging.to_device(image, device, dtype)
-            msk = staging.to_device(mask, device)
-        msk = _clamp_staged_mask(msk, kind)
-    return img, msk
+            raw = staging.to_device(mask, device)
+        msk = _clamp_staged_mask(raw, kind)
+    return (img, msk, raw) if keep_raw else (img, msk)
+
+
+def _tensor_kind(t: torch.Tensor) -> str:
+    """The numpy kind of a tensor's dtype ("b", "u", "i" or "f")."""
+    if t.dtype == torch.bool:
+        return "b"
+    if t.is_floating_point():
+        return "f"
+    unsigned = (torch.uint8, torch.uint16, torch.uint32, torch.uint64)
+    return "u" if t.dtype in unsigned else "i"
+
+
+def _on_device(t, device: torch.device) -> bool:
+    return (isinstance(t, torch.Tensor) and t.device.type == device.type
+            and (device.index is None or t.device.index == device.index))
+
+
+def _scan_inputs(image, mask, dtype, device, keep_raw=False):
+    """_device_inputs' result for a scan: from tensors on `device`, used in
+    place (the image as `dtype`, the mask clamped on the device by
+    _clamp_staged_mask for its kind: no host copy, no staging span); from
+    anything else, host arrays staged by _device_inputs. A tensor on another
+    device is refused rather than moved."""
+    if _on_device(image, device) and _on_device(mask, device):
+        mask = mask.contiguous()
+        img = image.to(dtype).contiguous()
+        msk = _clamp_staged_mask(mask, _tensor_kind(mask))
+        return (img, msk, mask) if keep_raw else (img, msk)
+    for name, t in (("image", image), ("mask", mask)):
+        if isinstance(t, torch.Tensor) and t.device.type != "cpu":
+            raise ValueError(f"{name} lies on {t.device}: pass both image and "
+                             f"mask on {device}, or both as host arrays")
+    return _device_inputs(image, mask, dtype, device, keep_raw)
 
 
 def _edges_block(hist_edges, i) -> np.ndarray:
@@ -235,11 +277,14 @@ def make_bag_device(
     (n_rois, histSize * 8 * n_scales) layout and bin semantics as
     make_bag; the frequencies are f32 (counts / masked voxels), as
     ife_tpu's make_bag_device gives them. Mixed ROI sizes run one
-    histogram_boxes call per size class.
+    histogram_boxes call per size class. `image` and `mask` may be tensors
+    already on the target device (used in place, the same bag to the bit
+    as from the same scan on the host) or host arrays.
 
     Spans (utils.profiling.span, recorded under torch.profiler): "bag",
     the call; "bag.stage", the inputs' staging (_device_inputs:
-    "bag.stage.h2d" over "bag.stage.pinned"); per scale and size class
+    "bag.stage.h2d" over "bag.stage.pinned"; for a scan on the device only
+    the mask's clamp); per scale and size class
     "bag.bin", the binning, and "bag.fetch", the host waiting for its
     frequencies. Only "bag.bin" records device events: the others are read
     on the host's clock."""
@@ -248,7 +293,7 @@ def make_bag_device(
     dev = default_device(device)
     with span("bag", work=len(rois)):
         with span("bag.stage"):
-            img, msk = _device_inputs(image, mask, dtype, dev)
+            img, msk = _scan_inputs(image, mask, dtype, dev)
         starts_np = np.asarray([r.index for r in rois],
                                np.int64).reshape(-1, 3)
         bag = np.zeros((len(rois), hist_size * NUM_FEATURES * len(sigmas)),
@@ -268,6 +313,59 @@ def make_bag_device(
                         freqs.cpu().numpy().astype(np.float64)
                         .reshape(len(idxs), -1))
     return bag
+
+
+def make_bag_dense_device(
+    image,
+    mask,
+    sigmas: Sequence[float],
+    hist_edges: Sequence[np.ndarray],
+    roi_size: Sequence[int] = (41, 41, 41),
+    spacing: Sequence[float] = (1.0, 1.0, 1.0),
+    dtype=torch.float32,
+    device=None,
+):
+    """MakeBagDense (tools/MakeBagDense.cxx) on the device: an ROI of
+    `roi_size` centred on every voxel where the mask is nonzero and whose
+    box lies inside the volume. Returns (starts, rows) on the device:
+    starts (N, 3) int64, exactly roi/generate.py:generate_dense_rois(mask,
+    roi_size)'s ROIs in its order (z, then y, then x fastest); rows
+    (N, histSize * 8 * n_scales) float32 in make_bag_device's layout and bin
+    semantics (counts / masked voxels of the box, divided in f32), equal to
+    make_bag_device's bag of those ROIs to the bit. The rows stay where
+    they were made; nothing returns to the host. `image` and `mask` are
+    host arrays or tensors on the target device, as for make_bag_device.
+
+    Spans: "bag.dense", the call (work: N); inside it "bag.stage" (the
+    inputs, as in make_bag_device), "bag.dense.index" (the starts, the row
+    of each start and each box's masked-voxel count; work: N) and per scale
+    the feature pass's spans and "bag.dense.bin", the binning (work: N; the
+    one span of the call with device events)."""
+    hist_size = _check_hist_spec(hist_edges, NUM_FEATURES * len(sigmas))
+    size = tuple(int(s) for s in roi_size)
+    dev = default_device(device)
+    ncols = hist_size * NUM_FEATURES * len(sigmas)
+    with span("bag.dense") as call:
+        with span("bag.stage"):
+            img, msk, raw = _scan_inputs(image, mask, dtype, dev, keep_raw=True)
+        weights = msk != 0
+        with span("bag.dense.index") as ix:
+            index = dense_index(raw != 0, weights, size)
+            n = ix.work = call.work = index.starts.shape[0]
+        rows = torch.empty((n, ncols), dtype=torch.float32, device=dev)
+        if n == 0:
+            return index.starts, rows
+        for i, sigma in enumerate(sigmas):
+            feats = features8_auto_channels(img, msk, float(sigma),
+                                            tuple(spacing))
+            edges = _round_edges_f32(_edges_block(hist_edges, i),
+                                     feats[0].dtype)
+            col0 = i * NUM_FEATURES * hist_size
+            with span("bag.dense.bin", device=dev, work=n):
+                dense_hist_rows(feats, weights, index, size, edges,
+                                rows[:, col0:col0 + NUM_FEATURES * hist_size])
+            del feats
+    return index.starts, rows
 
 
 def make_bag_sharded(

@@ -1,7 +1,8 @@
 """Spans and stage timers of the port, in one store (counterpart of
 ife_tpu/utils/profiling.py), and the yardsticks that time the card.
 
-`span(name, device=None, work=None)` marks a piece of the program's work.
+`span(name, device=None, work=None)` marks a piece of the program's work
+(whose count, `work`, may also be set on the span inside it).
 It records only while torch.profiler is recording in the calling thread;
 otherwise it costs its call and one flag check. While it records it
   * enters torch.profiler.record_function(name), so the span is a
@@ -136,7 +137,8 @@ class span:
             return False
         if self._events is not None:
             self._events[1].record(torch.cuda.current_stream(self.device))
-        _global_metrics.close(self._index)
+        # the work may be set inside the span, once it is known
+        _global_metrics.close(self._index).work = self.work
         self._index = None
         self._fn.__exit__(*exc)
         return False

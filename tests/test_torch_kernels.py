@@ -225,7 +225,7 @@ def test_build_is_keyed_by_the_sources():
         "hessian_eig.cu", "normalized_conv.cu", "features8_post.cu",
         "features8_sweep.cu", "features8_sweep_multi.cu",
         "features8_ys_multi.cu", "histogram.cu", "features8_tap.cu",
-        "probes.cu"}
+        "probes.cu", "dense_hist.cu"}
     assert {p.name for p in _build._sources()[1]} == {
         "features8_tail.cuh", "fir.cuh", "s_ring.cuh", "sweep_passes.cuh"}
     assert set(_build.LAUNCHES) == {"hessian_eig", "normalized_conv",
@@ -244,7 +244,7 @@ def test_build_is_keyed_by_the_sources():
                                     "features8_post_x_halo",
                                     "features8_post_pre_padded",
                                     "features8_post_windowed_pre_padded",
-                                    "pcopy1", "trivial6",
+                                    "pcopy1", "trivial6", "dense_hist",
                                     "hessian_eig_copyfloor",
                                     "hessian_eig_copy6",
                                     "hessian_eig_stencil6",
