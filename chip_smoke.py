@@ -182,7 +182,8 @@ failing phase exits non-zero:
               ~4.5 M voxels of an ellipsoid lung of the benchmark lung's
               extent, 4 scales, 32 bins; its launches counted, one scale's
               rows bit-equal to dense_counts_plain's, the kernels' call and
-              device ms beside the twin's); tap and xs beside the sweep;
+              device ms beside the twin's and the rows kernel's plan,
+              kernels.DENSE_HIST_PLAN); tap and xs beside the sweep;
               every shard mode beside its whole-volume mode; the 4-block
               and 2 x 2 sharded pass beside the single-device pass;
      probes   the probe path (kernels/probes.py and the copy-floor variants
@@ -3527,13 +3528,16 @@ def phase_full_dense(img, errs, results):
     DENSE_CHECK_SIGMA its rows bit-equal to the plain twin's
     (dense_counts_plain's counts over the boxes' counts, divided in f32);
     then dense_hist_rows alone on the same inputs, bit-equal again, on both
-    yardsticks beside the twin's call ms, and once more with edges from
+    yardsticks beside the twin's call ms, with the rows kernel's plan
+    (kernels.DENSE_HIST_PLAN), and once more with edges from
     the whole volume's channels, which crowd the lung's values into fewer
     bins (the fullest bin's mean frequency printed for both). Returns
     (launches, (bytes, operations) of one scale): the region's 8 f32
     channels and 1 B mask read once and the rows written once; a divide a
     frequency and a binary search a channel voxel of the region."""
-    from ife_tpu_torch.kernels import LAUNCHES, reset_launches
+    from ife_tpu_torch.kernels import (
+        DENSE_HIST_PLAN, LAUNCHES, reset_launches,
+    )
     from ife_tpu_torch.kernels.dense_hist import (
         dense_counts_plain, dense_hist_rows, dense_index,
     )
@@ -3613,15 +3617,17 @@ def phase_full_dense(img, errs, results):
                         kern)
     pm = timed(f"s={DENSE_CHECK_SIGMA} dense_counts_plain and the divide",
                plain)
+    plan = dict(DENSE_HIST_PLAN)
     results["dense_hist"] = dict(ms=km, device_ms=kd, plain_ms=pm,
-                                 max_abs_err=ab)
+                                 max_abs_err=ab, plan=plan)
     region = math.prod(a + s - 1 for a, s in zip(index.row_at.shape,
                                                  DENSE_SIZE))
     nbytes = region * (8 * 4 + 1) + n * width * 4
     ops = n * width + region * 8 * math.ceil(math.log2(DENSE_BINS))
     say("full", f"s={DENSE_CHECK_SIGMA} dense_hist_rows equal to its twin: "
         f"region {region} voxels, {nbytes / 1e9:.2f} GB moved -> "
-        f"{nbytes / 1e6 / kd:.0f} GB/s on the device yardstick")
+        f"{nbytes / 1e6 / kd:.0f} GB/s on the device yardstick; the rows "
+        f"kernel's plan {json.dumps(plan)}")
 
     def fullest():
         return float(out.view(n, 8, -1).mean(0).max())

@@ -35,11 +35,21 @@
 //
 // What bounds it on the H100: the rows written (N x C x bins x 4 B, 5 GB a
 // scale for the 5 M ROIs of a lung) at 3.35 TB/s, and below that the
-// shared-memory traffic of passes 2 and 3: a lane reads a word of four
-// u8 counts (pass 2) or two of u16 pairs (pass 3) a step, so the sliding
-// sums run at a quarter of the loads of one bin a lane; the row index of a
-// plane's starts is read once into shared memory and tells a whole tile
-// when to skip.
+// instructions of passes 2 and 3 (one block of 1,024 threads an SM, two
+// barriers a plane): a lane reads a word of four u8 counts (pass 2) or two
+// of u16 pairs (pass 3) a step, so the sliding sums run at a quarter of
+// the loads of one bin a lane; the row index of a plane's starts is read
+// once into shared memory and tells a whole tile when to skip. The first
+// window of a run, 41 reads of 72 in pass 2 at 41^3, adds whole groups in
+// straight-line code (four columns as u8 quads where sx <= 63, eight rows
+// as u16 pairs where sx * sz <= 8191, one at a time beyond), and a whole
+// run of pass 3 is unrolled: as loops over a count the compiler cannot
+// see, they compiled to a ladder of branches around each chunk.
+// Groups of bins a block (a column's counters of G bins, not all, so a
+// 2-4x larger tile in the same shared memory) were measured slower: each
+// group's block reads and tests every bin byte of its footprint, and the
+// 128-byte segment of a row and channel is then written in pieces by
+// blocks that run apart.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -128,6 +138,31 @@ __device__ __forceinline__ void write_row(float* __restrict__ out,
         for (int j = 0; j < 4 && 4 * q + j < s.nbins; ++j)
             dst[j] = __fdiv_rn((float)h[j], t);
     }
+}
+
+// pass 3 at start ty of a run: the y window steps to [ty, ty + sy) (unless
+// ty is the run's first start) by the entering row less the leaving one,
+// as u16 pairs biased by 0x8000 so that no half borrows from the other;
+// the start's row segment is written where the start is an ROI
+__device__ __forceinline__ void y_step(float* __restrict__ out,
+                                       const RowsShape& s, const int* row_s,
+                                       const int* tot_s, const uint32_t* src,
+                                       int ty, bool step, int tz, int c, int q,
+                                       uint32_t h[4], bool vec4) {
+    if (step) {
+        const uint2 e = *reinterpret_cast<const uint2*>(
+            src + (ty + s.sy - 1) * s.rowRw);
+        const uint2 l = *reinterpret_cast<const uint2*>(
+            src + (ty - 1) * s.rowRw);
+        const uint32_t dlo = e.x + kHalfBias2 - l.x;
+        const uint32_t dhi = e.y + kHalfBias2 - l.y;
+        h[0] += (dlo & 0xffffu) - kHalfBias;
+        h[2] += (dlo >> 16) - kHalfBias;
+        h[1] += (dhi & 0xffffu) - kHalfBias;
+        h[3] += (dhi >> 16) - kHalfBias;
+    }
+    const int r = row_s[ty * s.TZ + tz];
+    if (r >= 0) write_row(out, s, r, c, q, h, tot_s[ty * s.TZ + tz], vec4);
 }
 
 __global__ void __launch_bounds__(kRowsThreads, 1)
@@ -238,16 +273,25 @@ dense_hist_rows_kernel(const unsigned char* __restrict__ bins,
 
         // pass 2: z window of every footprint row, four bins a lane as
         // u16 pairs (bins 0, 2 in lo; 1, 3 in hi); the first window adds
-        // pack2 columns at a time as u8 quads before it widens them
+        // four columns at a time as u8 quads (pack2 >= 4) before it widens
+        // them
         for (int t = tid; t < FY * s.nq; t += blockDim.x) {
             const int fy = quot(t, inv_nq), q = t - fy * s.nq;
             const uint32_t* src = cw + fy * s.rowCw + q;
             uint32_t* dst = rz + fy * s.rowRw + 2 * q;
             uint32_t lo = 0, hi = 0;
-            for (int d0 = 0; d0 < s.sz; d0 += pack2) {
-                const int d1 = min(s.sz, d0 + pack2);
-                uint32_t w = 0;
-                for (int dz = d0; dz < d1; ++dz) w += src[dz * s.nq];
+            int dz = 0;
+            if (pack2 >= 4) {
+                for (; dz + 4 <= s.sz; dz += 4) {
+                    const uint32_t w = src[dz * s.nq] + src[(dz + 1) * s.nq]
+                                       + src[(dz + 2) * s.nq]
+                                       + src[(dz + 3) * s.nq];
+                    lo += w & kLowBytes;
+                    hi += (w >> 8) & kLowBytes;
+                }
+            }
+            for (; dz < s.sz; ++dz) {
+                const uint32_t w = src[dz * s.nq];
                 lo += w & kLowBytes;
                 hi += (w >> 8) & kLowBytes;
             }
@@ -264,10 +308,9 @@ dense_hist_rows_kernel(const unsigned char* __restrict__ bins,
         __syncthreads();
 
         // pass 3: y window of each start, u32 a bin; rows of the ROIs. A
-        // segment without an ROI is skipped. The first window adds pack3
-        // rows at a time as u16 pairs; a step adds the entering row less
-        // the leaving one as u16 pairs biased by 0x8000, so that no half
-        // borrows from the other
+        // segment without an ROI is skipped. The first window adds eight
+        // rows at a time as u16 pairs (pack3 >= 8) before it widens them;
+        // then y_step
         const int nseg = (TYe + kSegment - 1) / kSegment;
         for (int t = tid; t < nseg * TZe * s.nq; t += blockDim.x) {
             const int seg = quot(t, inv_nqtz);
@@ -275,40 +318,50 @@ dense_hist_rows_kernel(const unsigned char* __restrict__ bins,
             const int tz = quot(tq, inv_nq), q = tq - tz * s.nq;
             const int y0 = seg * kSegment;
             const int y1 = min(TYe, y0 + kSegment);
-            bool roi = false;
-            for (int ty = y0; ty < y1; ++ty) roi |= row_s[ty * s.TZ + tz] >= 0;
-            if (!roi) continue;
             const uint32_t* src = rz + tz * 2 * s.nq + 2 * q;
-            uint32_t h[4] = {0, 0, 0, 0};
-            for (int d0 = 0; d0 < s.sy; d0 += pack3) {
-                const int d1 = min(s.sy, d0 + pack3);
-                uint32_t plo = 0, phi = 0;
-#pragma unroll 4
-                for (int dy = d0; dy < d1; ++dy) {
-                    const uint2 v = *reinterpret_cast<const uint2*>(
-                        src + (y0 + dy) * s.rowRw);
-                    plo += v.x;
-                    phi += v.y;
-                }
-                h[0] += plo & 0xffffu; h[2] += plo >> 16;
-                h[1] += phi & 0xffffu; h[3] += phi >> 16;
+            // a whole run in straight-line code
+            const bool whole = y1 - y0 == kSegment;
+            bool roi = false;
+            if (whole) {
+#pragma unroll
+                for (int k = 0; k < kSegment; ++k)
+                    roi |= row_s[(y0 + k) * s.TZ + tz] >= 0;
+            } else {
+                for (int ty = y0; ty < y1; ++ty)
+                    roi |= row_s[ty * s.TZ + tz] >= 0;
             }
-            for (int ty = y0; ty < y1; ++ty) {
-                if (ty > y0) {
-                    const uint2 e = *reinterpret_cast<const uint2*>(
-                        src + (ty + s.sy - 1) * s.rowRw);
-                    const uint2 l = *reinterpret_cast<const uint2*>(
-                        src + (ty - 1) * s.rowRw);
-                    const uint32_t dlo = e.x + kHalfBias2 - l.x;
-                    const uint32_t dhi = e.y + kHalfBias2 - l.y;
-                    h[0] += (dlo & 0xffffu) - kHalfBias;
-                    h[2] += (dlo >> 16) - kHalfBias;
-                    h[1] += (dhi & 0xffffu) - kHalfBias;
-                    h[3] += (dhi >> 16) - kHalfBias;
+            if (!roi) continue;
+            uint32_t h[4] = {0, 0, 0, 0};
+            int dy = 0;
+            if (pack3 >= 8) {
+                for (; dy + 8 <= s.sy; dy += 8) {
+                    uint32_t plo = 0, phi = 0;
+#pragma unroll
+                    for (int k = 0; k < 8; ++k) {
+                        const uint2 v = *reinterpret_cast<const uint2*>(
+                            src + (y0 + dy + k) * s.rowRw);
+                        plo += v.x;
+                        phi += v.y;
+                    }
+                    h[0] += plo & 0xffffu; h[2] += plo >> 16;
+                    h[1] += phi & 0xffffu; h[3] += phi >> 16;
                 }
-                const int r = row_s[ty * s.TZ + tz];
-                if (r >= 0)
-                    write_row(out, s, r, c, q, h, tot_s[ty * s.TZ + tz], vec4);
+            }
+            for (; dy < s.sy; ++dy) {
+                const uint2 v = *reinterpret_cast<const uint2*>(
+                    src + (y0 + dy) * s.rowRw);
+                h[0] += v.x & 0xffffu; h[2] += v.x >> 16;
+                h[1] += v.y & 0xffffu; h[3] += v.y >> 16;
+            }
+            if (whole) {
+#pragma unroll
+                for (int k = 0; k < kSegment; ++k)
+                    y_step(out, s, row_s, tot_s, src, y0 + k, k > 0, tz, c,
+                           q, h, vec4);
+            } else {
+                for (int ty = y0; ty < y1; ++ty)
+                    y_step(out, s, row_s, tot_s, src, ty, ty > y0, tz, c, q,
+                           h, vec4);
             }
         }
     }

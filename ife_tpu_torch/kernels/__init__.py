@@ -30,6 +30,7 @@ and, with no ife_tpu counterpart (ife_tpu bins a dense bag box by box):
 
   dense_hist_rows (every ROI of MakeBagDense's
   dense grid, kernels/dense_hist.py)          -> csrc/dense_hist.cu
+  (its last plan of the rows kernel in DENSE_HIST_PLAN)
 
 of benchmarks/ (the roofline probes, kernels/probes.py):
 
@@ -46,6 +47,7 @@ Hessian and post kernels, and the probe outputs, each counted apart in
 LAUNCHES.
 """
 from ife_tpu_torch.kernels._build import LAUNCHES, reset_launches  # noqa: F401
+from ife_tpu_torch.kernels.dense_hist import DENSE_HIST_PLAN  # noqa: F401
 from ife_tpu_torch.kernels.features8_post import (  # noqa: F401
     features8_post_plain,
     fused_features8_post,

@@ -35,10 +35,16 @@ from ife_tpu_torch.kernels.histogram import (
 
 _MAX_BINS = 64           # kMaxEdges + 1
 _SMEM_MAX = 232448       # the shared memory one block may take
-_WAVES = 4               # blocks of the rows kernel a card's SMs should see
+# waves of rows-kernel blocks a card's SMs should see: x is cut into runs
+# (each filling its own first window) until the grid holds as many blocks
+_WAVES = 16
 # (TY, TZ) tiles of starts a block of the rows kernel owns, largest first
 _TILES = ((32, 16), (16, 16), (16, 8), (8, 8), (8, 4), (4, 4), (2, 4),
           (1, 4), (1, 1))
+
+# The rows kernel's last plan (_launch): its RowsPlan's fields, the blocks
+# of its grid and the x starts a block sweeps
+DENSE_HIST_PLAN: dict = {}
 
 
 class DenseIndex(NamedTuple):
@@ -155,10 +161,25 @@ def dense_counts_plain(channels: Sequence[torch.Tensor], weights: torch.Tensor,
     return out
 
 
-def _rows_plan(nbins: int, extent, size, smem: int = _SMEM_MAX):
-    """(TY, TZ, smem_bytes) of the rows kernel: the largest tile of _TILES
-    (cut to the extent of the starts) whose shared memory, as
-    csrc/dense_hist.cu lays it out, fits `smem`."""
+class RowsPlan(NamedTuple):
+    """A plan of csrc/dense_hist.cu's rows kernel: `G` bins a block (every
+    block counts all the bins, padded to quads), a tile of `TY` x `TZ`
+    starts, `smem` bytes of shared memory a block, `per_sm` blocks an SM
+    holds, and `col_updates`, the column updates a start and x plane: the
+    tile's footprint over its starts."""
+    G: int
+    TY: int
+    TZ: int
+    smem: int
+    per_sm: int
+    col_updates: float
+
+
+def _rows_plan(nbins: int, extent, size, smem: int = _SMEM_MAX) -> RowsPlan:
+    """The rows kernel's plan: the largest tile of _TILES (cut to the extent
+    of the starts) whose shared memory, as csrc/dense_hist.cu lays it out,
+    fits `smem`. A block takes 1,024 threads at up to 64 registers each, so
+    an SM holds one."""
     _, SY, SZ = extent
     _, sy, sz = size
     nq = -(-nbins // 4)
@@ -169,7 +190,7 @@ def _rows_plan(nbins: int, extent, size, smem: int = _SMEM_MAX):
         row_r = 2 * tz * nq + (2 * nq - 2 * tz * nq) % 32
         need = 4 * (-(-fy * row_c // 2) * 2 + fy * row_r + 2 * ty * tz)
         if need <= smem:
-            return ty, tz, need
+            return RowsPlan(4 * nq, ty, tz, need, 1, fy * fz / (ty * tz))
     raise ValueError(f"dense_hist: boxes of {tuple(size)} with {nbins} bins "
                      f"do not fit a block's shared memory")
 
@@ -209,15 +230,20 @@ def _launch(chans, weights, index, size, e32: np.ndarray,
     edges = torch.from_numpy(np.ascontiguousarray(e32, np.float32)).to(dev)
     bins = torch.empty((C, *(n + s - 1 for n, s in zip(extent, size))),
                        dtype=torch.uint8, device=dev)
-    ty, tz, smem = _rows_plan(E + 1, extent, size)
-    blocks = -(-extent[1] // ty) * -(-extent[2] // tz) * C
+    plan = _rows_plan(E + 1, extent, size)
+    blocks = -(-extent[1] // plan.TY) * -(-extent[2] // plan.TZ) * C
     chunks = max(1, min(-(-_WAVES * _sm_count(dev) // blocks),
                         -(-extent[0] // size[0])))
+    xchunk = -(-extent[0] // chunks)
     ptrs = (ctypes.c_void_p * C)(*(ch.data_ptr() for ch in chans))
     launch("dense_hist", dev, ptrs, C, w.data_ptr(), edges.data_ptr(), E,
            X, Y, Z, *index.lo, *size, index.row_at.data_ptr(),
            index.total_at.data_ptr(), *extent, bins.data_ptr(), out.data_ptr(),
-           out.stride(0), ty, tz, -(-extent[0] // chunks), smem)
+           out.stride(0), plan.TY, plan.TZ, xchunk, plan.smem)
+    DENSE_HIST_PLAN.clear()
+    DENSE_HIST_PLAN.update(plan._asdict(),
+                           blocks=blocks * -(-extent[0] // xchunk),
+                           xchunk=xchunk)
     del bins, edges  # freed in stream order, after the launches
 
 

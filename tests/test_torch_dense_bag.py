@@ -24,7 +24,8 @@ from ife_tpu_torch.io import (
 )
 from ife_tpu_torch.kernels import LAUNCHES
 from ife_tpu_torch.kernels.dense_hist import (
-    dense_counts_plain, dense_hist_rows, dense_index, dense_starts,
+    DENSE_HIST_PLAN, _rows_plan, dense_counts_plain,
+    dense_hist_rows, dense_index, dense_starts,
 )
 from ife_tpu_torch.kernels.histogram import histogram_boxes_plain
 from ife_tpu_torch.roi.bag import make_bag_dense_device, make_bag_device
@@ -239,6 +240,43 @@ def test_the_bag_csv_formats_each_value_to_6_significant_digits(
     assert (tmp_path / "e.bag").read_text() == ""
 
 
+# the extent of the starts (41^3 boxes) of a lung of the dense benchmark
+# cell (ifebench's mil-bag-dense-4s.right-lung, seed 3900000001, slot 0)
+BENCH_EXTENT = (151, 212, 303)
+
+
+@pytest.mark.parametrize("size,bins,extent", [
+    ((41, 41, 41), 32, BENCH_EXTENT), ((7, 9, 5), 6, (34, 28, 28)),
+    ((41, 41, 41), 1, BENCH_EXTENT), ((41, 41, 41), 64, BENCH_EXTENT),
+    ((41, 41, 41), 32, (5, 9, 3)), ((255, 3, 5), 32, (20, 90, 70)),
+    ((41, 41, 41), 17, BENCH_EXTENT), ((41, 41, 41), 33, (40, 50, 60)),
+    ((1, 1, 1), 64, (8, 200, 300)), ((255, 1, 128), 64, (4, 9, 40))])
+def test_the_rows_plan_fits_a_block(size, bins, extent):
+    plan = _rows_plan(bins, extent, size)
+    _, sy, sz = size
+    assert 0 < plan.smem <= 232448 and plan.per_sm == 1
+    # every block counts all the bins, padded to quads of four
+    assert plan.G == -(-bins // 4) * 4
+    assert 1 <= plan.TY <= extent[1] and 1 <= plan.TZ <= extent[2]
+    # one thread of the block's 1,024 stages each start of the tile
+    assert plan.TY * plan.TZ <= 1024
+    assert plan.col_updates == (plan.TY + sy - 1) * (plan.TZ + sz - 1) / (
+        plan.TY * plan.TZ)
+
+
+def test_the_rows_plan_at_the_benchmarks_shape():
+    # 41^3 boxes and 32 bins: a 32 x 16 tile of starts, 72 x 56 footprint
+    # columns of 32 u8 counts, 7.875 column updates a start and x plane
+    plan = _rows_plan(32, BENCH_EXTENT, (41, 41, 41))
+    assert (plan.G, plan.TY, plan.TZ, plan.smem) == (32, 32, 16, 213760)
+    assert plan.col_updates == 72 * 56 / 512
+
+
+def test_the_rows_plan_refuses_boxes_that_do_not_fit():
+    with pytest.raises(ValueError, match="shared memory"):
+        _rows_plan(64, (10, 10, 10), (1, 4000, 4000))
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -251,29 +289,39 @@ def cuda():
     return torch.device("cuda", 0)
 
 
+# a volume whose starts of 41^3 boxes leave a ragged last tile of the rows
+# kernel in y and in z (tiles of 64 or 32 starts)
+RAGGED_SHAPE = (50, 146, 124)
+
+
 def _card_inputs(mask_kind, bins, seed=4):
-    shape = (96, 96, 80)
+    shape = RAGGED_SHAPE if mask_kind == "ragged" else (96, 96, 80)
     rng = np.random.default_rng(seed)
     chans = [rng.standard_normal(shape).astype(np.float32) for _ in range(8)]
     chans[3].reshape(-1)[::101] = np.nan
     chans[5].reshape(-1)[::211] = -np.inf
-    if mask_kind == "ones":
-        mask = np.ones(shape, np.uint8)
-    else:
+    if mask_kind == "ellipsoid":
         mask = _ellipsoids(shape, [(48, 50, 38)], (36, 40, 33))
+    else:
+        mask = np.ones(shape, np.uint8)
     edges = np.stack([np.sort(rng.standard_normal(bins - 1)) for _ in range(8)])
     return chans, torch.from_numpy(mask) != 0, torch.from_numpy(
         edges.astype(np.float32))
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("size,bins", [((41, 41, 41), 32), ((7, 9, 5), 6)])
-@pytest.mark.parametrize("mask_kind", ["ellipsoid", "ones"])
+@pytest.mark.parametrize("size,bins", [((41, 41, 41), 32), ((7, 9, 5), 6),
+                                       ((41, 41, 41), 17), ((41, 41, 41), 33)])
+@pytest.mark.parametrize("mask_kind", ["ellipsoid", "ones", "ragged"])
 def test_the_dense_kernels_equal_their_twin_to_the_bit(cuda, mask_kind, size,
                                                        bins):
     chans, w, e = _card_inputs(mask_kind, bins)
     index = dense_index(w, w, size)
     n = index.starts.shape[0]
+    if mask_kind == "ragged":
+        plan = _rows_plan(bins, index.row_at.shape, size)
+        _, sy, sz = index.row_at.shape
+        assert sy % plan.TY and sz % plan.TZ
     want = torch.empty((n, 8 * bins), dtype=torch.float32)
     dense_hist_rows([torch.from_numpy(c) for c in chans], w, index, size, e,
                     want)
@@ -288,6 +336,8 @@ def test_the_dense_kernels_equal_their_twin_to_the_bit(cuda, mask_kind, size,
                     size, e, out[:, 4:4 + 8 * bins])
     torch.cuda.synchronize(cuda)
     assert LAUNCHES["dense_hist"] - before == 1
+    plan = _rows_plan(bins, index.row_at.shape, size)._asdict()
+    assert {k: DENSE_HIST_PLAN[k] for k in plan} == plan
     got = out.cpu()
     assert torch.equal(got[:, :4], torch.full((n, 4), -1.0))
     assert torch.equal(got[:, 4 + 8 * bins:], torch.full((n, 8), -1.0))
