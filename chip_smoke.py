@@ -3542,9 +3542,7 @@ def phase_full_dense(img, errs, results):
         dense_counts_plain, dense_hist_rows, dense_index,
     )
     from ife_tpu_torch.ops.features import features8_auto_channels
-    from ife_tpu_torch.roi.bag import (
-        _edges_block, _round_edges_f32, make_bag_dense_device,
-    )
+    from ife_tpu_torch.roi.bag import _edges_block, make_bag_dense_device
 
     dev = img.device
     lung = dense_lung(tuple(img.shape), dev)
@@ -3585,7 +3583,7 @@ def phase_full_dense(img, errs, results):
     i = SIGMAS.index(DENSE_CHECK_SIGMA)
     feats = features8_auto_channels(img, lung, DENSE_CHECK_SIGMA,
                                     FULL_SPACING)
-    e = _round_edges_f32(_edges_block(edges, i), feats[0].dtype)
+    e = _edges_block(edges, i)
     index = dense_index(w, w, DENSE_SIZE)
 
     def plain():
@@ -3633,8 +3631,7 @@ def phase_full_dense(img, errs, results):
         return float(out.view(n, 8, -1).mean(0).max())
 
     lung_share = fullest()
-    e_vol = _round_edges_f32(hist_edges(feats, DENSE_BINS - 1).numpy(),
-                             feats[0].dtype)
+    e_vol = hist_edges(feats, DENSE_BINS - 1)
     _, vd = timed_both(f"s={DENSE_CHECK_SIGMA} dense_hist_rows, edges from "
                        "the whole volume's channels",
                        lambda: dense_hist_rows(feats, w, index, DENSE_SIZE,

@@ -85,18 +85,27 @@ NUM_FEATURES = 8  # reference ImageToEmphysemaFeaturesFilter.h:62
 _SWEEP_RX_MAX = 10
 _XS_RX_MAX = 24
 
-# mask dtypes torch.clamp has no kernel for, and the dtype they clamp in
-_CLAMP_AS = {torch.bool: torch.uint8, torch.uint16: torch.int32,
-             torch.uint32: torch.int64, torch.uint64: torch.int64}
 
-
-def clamp_mask(mask: torch.Tensor) -> torch.Tensor:
+def clamp_mask(mask: torch.Tensor, kind: str | None = None) -> torch.Tensor:
     """Clamp a labeled mask to binary {0,1} (labels 2,3,... -> 1), the
     itk::ClampImageFilter(0,1) before every feature pass (reference
-    tools/ExtractFeatures.cxx:98-104)."""
-    if mask.dtype in _CLAMP_AS:
-        mask = mask.to(_CLAMP_AS[mask.dtype])
-    return torch.clamp(mask, 0, 1)
+    tools/ExtractFeatures.cxx:98-104), in one pass on the mask's device: a
+    bool or unsigned mask as uint8; a signed integer one in its own dtype; a
+    float one in its own dtype, NaN kept and -0.0 and all below 0 as +0.0.
+
+    `kind` is the numpy kind ("b", "u", "i" or "f") of a mask that crossed
+    from the host as the signed integer of its width (a bool or unsigned
+    one: roi/bag.py's staging); None reads it from the tensor's dtype."""
+    if kind is None:
+        kind = ("f" if mask.is_floating_point()
+                else "i" if mask.is_signed() else "u")
+    if kind in "bu":
+        return (mask != 0).view(torch.uint8)
+    if kind == "f":
+        # selects, not torch.clamp, whose kernels differ in the sign they
+        # give a clamped -0.0
+        return torch.where(mask <= 0, 0, torch.where(mask >= 1, 1, mask))
+    return mask.clamp(0, 1)
 
 
 def features8(
@@ -187,8 +196,6 @@ def fused_features8(image, mask, sigma, spacing=(1.0, 1.0, 1.0),
         if branch == "sweep":
             # the sweep clamps the mask itself: no clamp pass over the volume
             with span("features.mask", device=dev, work=voxels):
-                if mask.dtype in _CLAMP_AS:
-                    mask = mask.to(_CLAMP_AS[mask.dtype])
                 mf = mask.to(image.dtype).contiguous()
             return fused_features8_sweep(image, mf, sigma, spacing, truncate,
                                          stack=stack)

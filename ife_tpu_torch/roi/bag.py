@@ -31,9 +31,11 @@ import numpy as np
 import torch
 
 from ife_tpu_torch.kernels.dense_hist import dense_hist_rows, dense_index
-from ife_tpu_torch.kernels.histogram import _edges_f32_round_down, histogram_boxes
+from ife_tpu_torch.kernels.histogram import histogram_boxes
 from ife_tpu_torch.native_lib import histogram_channels_native
-from ife_tpu_torch.ops.features import NUM_FEATURES, features8_auto_channels
+from ife_tpu_torch.ops.features import (
+    NUM_FEATURES, clamp_mask, features8_auto_channels,
+)
 from ife_tpu_torch.parallel.mesh import default_device
 from ife_tpu_torch.roi.generate import ROI
 from ife_tpu_torch.utils import staging
@@ -62,40 +64,12 @@ def _roi_frequencies(values: np.ndarray, edges: np.ndarray) -> np.ndarray:
         return counts / total
 
 
-def _clamped_mask(mask) -> np.ndarray:
-    """The mask clamped to {0, 1} on the host: a bool or unsigned mask as
-    uint8, any other in its own dtype."""
-    mask = np.asarray(mask)
-    if mask.dtype.kind == "f":
-        # np.clip's clamped zero keeps the sign of -0.0 in some numpy
-        # versions and not in others: here NaN stays and -0.0 and all below
-        # 0 become +0.0, as _clamp_staged_mask gives them on the device
-        return np.where(mask <= 0, 0, np.where(mask >= 1, 1, mask)).astype(
-            mask.dtype, copy=False)
-    out = np.clip(mask, 0, 1)
-    if mask.dtype.kind in "bu":
-        # 0/1 after the clip: uint8 keeps the values and has every torch op
-        out = out.astype(np.uint8, copy=False)
-    return out
-
-
-def _clamp_staged_mask(m: torch.Tensor, kind: str) -> torch.Tensor:
-    """_clamped_mask's dtype and values from the mask as it crossed: `kind`
-    is the numpy kind of the caller's mask; a bool or unsigned mask crossed
-    as the signed integer of its width."""
-    if kind in "bu":
-        return (m != 0).view(torch.uint8)
-    if m.is_floating_point():
-        return torch.where(m <= 0, 0, torch.where(m >= 1, 1, m))
-    return m.clamp(0, 1)
-
-
 def _device_inputs(image, mask, dtype, device, keep_raw=False):
-    """The image as `dtype` and the mask as _clamped_mask gives it, on
-    `device`. Each crosses once, as the caller holds it (a bool or unsigned
-    mask as the signed integer of its width), through utils/staging.py's
-    ring of page-locked buffers on the card; the mask's clamp runs on the
-    device. `keep_raw` appends the mask as it crossed.
+    """The image as `dtype` and the mask as ops/features.py:clamp_mask gives
+    it, on `device`. Each crosses once, as the caller holds it (a bool or
+    unsigned mask as the signed integer of its width), through
+    utils/staging.py's ring of page-locked buffers on the card; the mask's
+    clamp runs on the device. `keep_raw` appends the mask as it crossed.
 
     Spans: "bag.stage.h2d" (work: the bytes that cross) over
     "bag.stage.pinned" (work: those that go through the ring; 0 on the CPU
@@ -111,18 +85,8 @@ def _device_inputs(image, mask, dtype, device, keep_raw=False):
                   + staging.ring_nbytes(mask, device)):
             img = staging.to_device(image, device, dtype)
             raw = staging.to_device(mask, device)
-        msk = _clamp_staged_mask(raw, kind)
+        msk = clamp_mask(raw, kind)
     return (img, msk, raw) if keep_raw else (img, msk)
-
-
-def _tensor_kind(t: torch.Tensor) -> str:
-    """The numpy kind of a tensor's dtype ("b", "u", "i" or "f")."""
-    if t.dtype == torch.bool:
-        return "b"
-    if t.is_floating_point():
-        return "f"
-    unsigned = (torch.uint8, torch.uint16, torch.uint32, torch.uint64)
-    return "u" if t.dtype in unsigned else "i"
 
 
 def _on_device(t, device: torch.device) -> bool:
@@ -133,13 +97,13 @@ def _on_device(t, device: torch.device) -> bool:
 def _scan_inputs(image, mask, dtype, device, keep_raw=False):
     """_device_inputs' result for a scan: from tensors on `device`, used in
     place (the image as `dtype`, the mask clamped on the device by
-    _clamp_staged_mask for its kind: no host copy, no staging span); from
-    anything else, host arrays staged by _device_inputs. A tensor on another
-    device is refused rather than moved."""
+    clamp_mask: no host copy, no staging span); from anything else, host
+    arrays staged by _device_inputs. A tensor on another device is refused
+    rather than moved."""
     if _on_device(image, device) and _on_device(mask, device):
         mask = mask.contiguous()
         img = image.to(dtype).contiguous()
-        msk = _clamp_staged_mask(mask, _tensor_kind(mask))
+        msk = clamp_mask(mask)
         return (img, msk, mask) if keep_raw else (img, msk)
     for name, t in (("image", image), ("mask", mask)):
         if isinstance(t, torch.Tensor) and t.device.type != "cpu":
@@ -152,6 +116,16 @@ def _edges_block(hist_edges, i) -> np.ndarray:
     """(8, E) f64 edges of scale i (scale-major: row i*8 + k)."""
     return np.stack([np.asarray(hist_edges[i * NUM_FEATURES + k], np.float64)
                      for k in range(NUM_FEATURES)])
+
+
+def _scales(sigmas, hist_edges, hist_size: int):
+    """Per scale i: its sigma, its (8, E) f64 edges as the caller gave them
+    (the histogram kernels round them for f32 values) and the slice of the
+    bag's columns it fills."""
+    width = NUM_FEATURES * hist_size
+    for i, sigma in enumerate(sigmas):
+        yield (float(sigma), _edges_block(hist_edges, i),
+               slice(i * width, (i + 1) * width))
 
 
 def make_bag(
@@ -173,16 +147,13 @@ def make_bag(
     """
     hist_size = _check_hist_spec(hist_edges, NUM_FEATURES * len(sigmas))
     dev = default_device(device)
-    mask = np.asarray(mask)
     img, msk = _device_inputs(image, mask, dtype, dev)
     bag = np.zeros((len(rois), hist_size * len(hist_edges)), dtype=np.float64)
-    roi_masks = [_clamped_mask(mask[r.slices()]) != 0 for r in rois]
+    roi_masks = [(msk[r.slices()] != 0).cpu().numpy() for r in rois]
 
-    for i, sigma in enumerate(sigmas):
+    for sigma, edges, cols in _scales(sigmas, hist_edges, hist_size):
         feats = [c.cpu().numpy() for c in features8_auto_channels(
-            img, msk, float(sigma), tuple(spacing))]
-        edges_block = _edges_block(hist_edges, i)
-        col0 = i * NUM_FEATURES * hist_size
+            img, msk, sigma, tuple(spacing))]
         for j, r in enumerate(rois):
             inside = roi_masks[j]
             vox = [feats[k][r.slices()][inside] for k in range(NUM_FEATURES)]
@@ -193,15 +164,13 @@ def make_bag(
                 # land in bin 0 here and in the upper tail on numpy's path,
                 # as in ife_tpu)
                 counts = histogram_channels_native(np.stack(vox, axis=1),
-                                                   edges_block)
+                                                   edges)
                 with np.errstate(divide="ignore", invalid="ignore"):
                     freqs = counts.astype(np.float64) / np.float64(len(vox[0]))
-                bag[j, col0 : col0 + NUM_FEATURES * hist_size] = freqs.reshape(-1)
-                continue
-            for k in range(NUM_FEATURES):
-                freqs = _roi_frequencies(vox[k], edges_block[k])
-                col = col0 + k * hist_size
-                bag[j, col : col + hist_size] = freqs
+            else:
+                freqs = np.stack([_roi_frequencies(vox[k], edges[k])
+                                  for k in range(NUM_FEATURES)])
+            bag[j, cols] = freqs.reshape(-1)
     return bag
 
 
@@ -209,7 +178,7 @@ def roi_feature_histograms_device(
     feats,
     mask: torch.Tensor,
     starts,
-    edges: torch.Tensor,
+    edges,
     size: tuple,
 ) -> torch.Tensor:
     """Device-side MakeBag inner loop: per-ROI masked feature histograms of
@@ -221,7 +190,8 @@ def roi_feature_histograms_device(
         volume.
       mask: (X, Y, Z) labels; nonzero = counted.
       starts: (N, 3) int ROI start corners.
-      edges: (C, E) bin edges per channel.
+      edges: (C, E) bin edges per channel, host data (histogram_boxes
+        rounds f64 edges for f32 channels).
       size: ROI box (sx, sy, sz).
 
     Returns:
@@ -250,17 +220,6 @@ def _size_classes(rois: Sequence[ROI]):
     for j, r in enumerate(rois):
         classes.setdefault(r.size, []).append(j)
     return list(classes.items())
-
-
-def _round_edges_f32(edges_block: np.ndarray, fdt) -> torch.Tensor:
-    """Edges for binning `fdt` values, on the host: the bin convention
-    compares f32 values against f64 edges (exact after promotion); comparing
-    in f32 is equivalent iff edges are rounded DOWN (v <= e64 <=> v <=
-    f32_floor(e64)). Other value dtypes keep the f64 edges."""
-    e = torch.from_numpy(np.asarray(edges_block, np.float64))
-    if fdt == torch.float32:
-        e = _edges_f32_round_down(e)
-    return e.to(fdt)
 
 
 def make_bag_device(
@@ -298,20 +257,15 @@ def make_bag_device(
                                np.int64).reshape(-1, 3)
         bag = np.zeros((len(rois), hist_size * NUM_FEATURES * len(sigmas)),
                        dtype=np.float64)
-        for i, sigma in enumerate(sigmas):
-            feats = features8_auto_channels(img, msk, float(sigma),
-                                            tuple(spacing))
-            edges = _round_edges_f32(_edges_block(hist_edges, i),
-                                     feats[0].dtype)
-            col0 = i * NUM_FEATURES * hist_size
+        for sigma, edges, cols in _scales(sigmas, hist_edges, hist_size):
+            feats = features8_auto_channels(img, msk, sigma, tuple(spacing))
             for size, idxs in classes:
                 with span("bag.bin", device=dev, work=len(idxs)):
                     freqs = roi_feature_histograms_device(
                         feats, msk, starts_np[idxs], edges, size)
                 with span("bag.fetch", work=len(idxs)):
-                    bag[idxs, col0 : col0 + NUM_FEATURES * hist_size] = (
-                        freqs.cpu().numpy().astype(np.float64)
-                        .reshape(len(idxs), -1))
+                    bag[idxs, cols] = (freqs.cpu().numpy().astype(np.float64)
+                                       .reshape(len(idxs), -1))
     return bag
 
 
@@ -355,15 +309,11 @@ def make_bag_dense_device(
         rows = torch.empty((n, ncols), dtype=torch.float32, device=dev)
         if n == 0:
             return index.starts, rows
-        for i, sigma in enumerate(sigmas):
-            feats = features8_auto_channels(img, msk, float(sigma),
-                                            tuple(spacing))
-            edges = _round_edges_f32(_edges_block(hist_edges, i),
-                                     feats[0].dtype)
-            col0 = i * NUM_FEATURES * hist_size
+        for sigma, edges, cols in _scales(sigmas, hist_edges, hist_size):
+            feats = features8_auto_channels(img, msk, sigma, tuple(spacing))
             with span("bag.dense.bin", device=dev, work=n):
                 dense_hist_rows(feats, weights, index, size, edges,
-                                rows[:, col0:col0 + NUM_FEATURES * hist_size])
+                                rows[:, cols])
             del feats
     return index.starts, rows
 
@@ -400,28 +350,25 @@ def make_bag_sharded(
 
     classes = _size_classes(rois)
     hist_size = _check_hist_spec(hist_edges, NUM_FEATURES * len(sigmas))
-    mask_np = np.clip(np.asarray(mask), 0, 1)
-    if mask_np.dtype.kind in "bu":
-        mask_np = mask_np.astype(np.uint8)
+    clamped = clamp_mask(staging.to_device(np.asarray(mask), "cpu"))
 
     # pad to the mesh grid; ROIs index the original region only, which the
     # gathered channels are cropped back to
     img_p, orig = pad_to_mesh(np.asarray(image, np.float32), mesh)
-    msk_p, _ = pad_to_mesh(mask_np, mesh)
+    msk_p, _ = pad_to_mesh(clamped.numpy(), mesh)
     img_s = shard_volume(img_p, mesh).map(lambda b: b.to(dtype))
     msk_s = shard_volume(msk_p, mesh)
-    msk = torch.from_numpy(mask_np).to(mesh.device)
+    msk = clamped.to(mesh.device)
     starts_np = np.asarray([r.index for r in rois], np.int64).reshape(-1, 3)
     bag = np.zeros((len(rois), hist_size * NUM_FEATURES * len(sigmas)),
                    dtype=np.float64)
 
-    for i, sigma in enumerate(sigmas):
-        chans = sharded_features8(img_s, msk_s, float(sigma), mesh,
-                                  tuple(spacing), stack=False)
-        edges = _round_edges_f32(_edges_block(hist_edges, i), chans[0].dtype)
+    for sigma, edges, cols in _scales(sigmas, hist_edges, hist_size):
+        chans = sharded_features8(img_s, msk_s, sigma, mesh, tuple(spacing),
+                                  stack=False)
         for k, chan in enumerate(chans):
             feat = crop_from_mesh(gather_volume(chan), orig)
-            col = (i * NUM_FEATURES + k) * hist_size
+            col = cols.start + k * hist_size
             for size, idxs in classes:
                 freqs = roi_feature_histograms_device(
                     (feat,), msk, starts_np[idxs], edges[k:k + 1], size)
@@ -440,7 +387,7 @@ def make_bag_intensity(
     """MakeBagOnlyIntensity semantics (tools/MakeBagOnlyIntensity.cxx:326-382):
     one histogram over RAW intensity, no features, no scales."""
     edges = np.asarray(hist_edges)
-    mask_np = np.clip(np.asarray(mask), 0, 1)
+    mask_np = clamp_mask(staging.to_device(np.asarray(mask), "cpu")).numpy()
     img = np.asarray(image)
     bag = np.zeros((len(rois), edges.size + 1), dtype=np.float64)
     for j, r in enumerate(rois):

@@ -268,12 +268,24 @@ def test_every_branch_gives_ife_tpus_numbers_on_each_side_of_a_cut(rx):
 
 
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.int16, torch.uint16,
-                                   torch.int32, torch.float32, torch.bool])
+                                   torch.uint32, torch.int8, torch.int32,
+                                   torch.float32, torch.float64, torch.bool])
 def test_clamp_mask_labels(dtype):
     labels = torch.tensor([0, 1, 2, 3, 0, 7]).to(dtype)
     got = TF.clamp_mask(labels)
     want = np.clip(labels.numpy().astype(np.int64), 0, 1)
     assert np.array_equal(got.numpy().astype(np.int64), want)
+    # a bool or unsigned mask clamps to uint8, any other in its own dtype
+    assert got.dtype == (dtype if dtype.is_signed else torch.uint8)
+    if dtype.is_signed:
+        # all below 0 becomes 0 (for floats +0.0, -0.0 too); a float mask
+        # keeps NaN and its fractions
+        low = [-0.0, -2.0, 0.25, float("nan"), -np.inf, np.inf]
+        if not dtype.is_floating_point:
+            low = [-3, -1, 0, 5]
+        want = torch.tensor(low).clamp(0, 1).abs().to(dtype)
+        got = TF.clamp_mask(torch.tensor(low).to(dtype))
+        assert got.numpy().tobytes() == want.numpy().tobytes()
 
 
 def test_names_and_single_dispatch_branch():

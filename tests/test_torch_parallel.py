@@ -424,6 +424,12 @@ def test_make_bag_sharded_matches_host_bag_and_ife_tpu():
         dev = make_bag_device(img, mask, (1.0,), edges, boxes, SPACING,
                               device="cpu")
         np.testing.assert_allclose(got, dev, atol=1e-6)
+        # a bool mask clamps to the same uint8 labels: the same bags
+        on = mask.astype(bool)
+        assert np.array_equal(
+            make_bag_sharded(img, on, (1.0,), edges, boxes, mesh, SPACING), got)
+        assert np.array_equal(
+            make_bag(img, on, (1.0,), edges, boxes, SPACING, device="cpu"), host)
     want = j_make_bag_sharded(img, mask, (1.0,), edges, rois,
                               _jmesh(8, ("x", "y")), SPACING)
     np.testing.assert_allclose(
@@ -462,7 +468,7 @@ def test_sharded_routes_hold_at_most_one_gathered_channel(tmp_path,
     from ife_tpu_torch.cli.main import main
     from ife_tpu_torch.parallel import mesh as mesh_mod
     from ife_tpu_torch.roi.bag import (
-        _edges_block, _round_edges_f32, roi_feature_histograms_device,
+        _edges_block, roi_feature_histograms_device,
     )
 
     shape = (41, 35, 24)  # padded to the mesh grid: (44, 35, 24) / (42, 36, 24)
@@ -483,8 +489,8 @@ def test_sharded_routes_hold_at_most_one_gathered_channel(tmp_path,
     feats = [P.crop_from_mesh(P.gather_volume(c), shape) for c in chans]
     starts = np.asarray([r.index for r in rois])
     want = roi_feature_histograms_device(
-        feats, torch.from_numpy(mask), starts,
-        _round_edges_f32(_edges_block(edges, 0), torch.float32), (9, 9, 9))
+        feats, torch.from_numpy(mask), starts, _edges_block(edges, 0),
+        (9, 9, 9))
     want = want.numpy().astype(np.float64).reshape(len(rois), -1)
     del chans, feats
 

@@ -31,10 +31,10 @@ def store(monkeypatch):
     return m
 
 
-def _profiled(fn):
-    """fn() under torch.profiler (CPU activity) inside record_function
-    "outer"; returns the profiler."""
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
+def _profiled(fn, **options):
+    """fn() under torch.profiler (CPU activity, and `options`) inside
+    record_function "outer"; returns the profiler."""
+    with profile(activities=[ProfilerActivity.CPU], **options) as prof:
         with record_function("outer"):
             fn()
     return prof
@@ -248,13 +248,22 @@ def test_the_dispatcher_records_its_branch_and_mask_spans(store, branch,
     want = fused_features8(img, mask, 1.1, (0.8, 0.9, 1.0), branch=branch)
     assert store.records == []
     got = []
-    _profiled(lambda: got.append(
-        fused_features8(img, mask, 1.1, (0.8, 0.9, 1.0), branch=branch)))
+    prof = _profiled(lambda: got.append(
+        fused_features8(img, mask, 1.1, (0.8, 0.9, 1.0), branch=branch)),
+        profile_memory=True)
     assert torch.equal(torch.nan_to_num(got[0], 7.0),
                        torch.nan_to_num(want, 7.0))
     voxels = img.numel()
     assert [(r.name, r.parent, r.request, r.work) for r in store.records] == [
         (name, None, 0, voxels), ("features.mask", 0, 0, voxels)]
+    # the passes over the uint8 mask (ops that write a volume; a view writes
+    # none): the cast alone for the sweep, which clamps in its kernel; the
+    # clamp and the cast for the others
+    spans = [e for e in prof.events() if e.name == "features.mask"]
+    assert len(spans) == 1
+    passes = [e.name for e in spans[0].cpu_children
+              if e.cpu_memory_usage >= voxels]
+    assert len(passes) == (1 if branch == "sweep" else 2), passes
 
 
 def test_make_bag_device_records_its_span_tree(store, tmp_path):

@@ -1,6 +1,7 @@
 """make_bag_device's staging of its inputs (roi/bag.py:_device_inputs over
 utils/staging.py): the mask crosses as the caller holds it and is clamped on
-the device to what the host clamp gives, to the bit; the page-locked ring's
+the device to what ops/features.py:clamp_mask gives the host's tensor, to
+the bit; the page-locked ring's
 chunk plan covers every byte once; bags do not change. The ring itself runs
 only on the card (marker gpu).
 
@@ -16,9 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from ife_tpu_torch.roi.bag import (
-    _clamped_mask, _device_inputs, make_bag, make_bag_device,
-)
+from ife_tpu_torch.ops.features import clamp_mask
+from ife_tpu_torch.roi.bag import _device_inputs, make_bag, make_bag_device
 from ife_tpu_torch.roi.generate import ROI
 from ife_tpu_torch.utils import staging
 
@@ -42,6 +42,11 @@ def _mask(dtype, seed=0, shape=SHAPE):
     return rng.integers(lo, 7, shape).astype(dtype)
 
 
+def _host_clamp(mask: np.ndarray) -> torch.Tensor:
+    """clamp_mask of the caller's mask as a host tensor of its own dtype."""
+    return clamp_mask(torch.from_numpy(np.ascontiguousarray(mask)))
+
+
 def _same_bits(got: torch.Tensor, want: torch.Tensor):
     assert got.dtype == want.dtype and got.shape == want.shape
     g, w = got.cpu().contiguous().numpy(), want.cpu().contiguous().numpy()
@@ -54,7 +59,7 @@ def test_the_staged_mask_is_the_host_clamp_to_the_bit(dtype):
     mask = _mask(dtype)
     img = np.zeros(SHAPE, np.float32)
     _, got = _device_inputs(img, mask, torch.float32, CPU)
-    _same_bits(got, torch.from_numpy(_clamped_mask(mask)))
+    _same_bits(got, _host_clamp(mask))
     # the caller's mask is read, never written
     np.testing.assert_array_equal(mask, _mask(dtype))
 
@@ -64,7 +69,7 @@ def test_a_non_contiguous_mask_and_image_stage_as_their_copies():
     img = np.random.default_rng(1).random((11, 10, 9)).transpose(2, 1, 0)
     assert not mask.flags.c_contiguous and not img.flags.c_contiguous
     got_img, got_mask = _device_inputs(img, mask, torch.float32, CPU)
-    _same_bits(got_mask, torch.from_numpy(_clamped_mask(mask)))
+    _same_bits(got_mask, _host_clamp(mask))
     _same_bits(got_img, torch.from_numpy(np.ascontiguousarray(img)).float())
 
 
@@ -118,9 +123,9 @@ def test_a_signed_mask_with_negatives_gives_the_bag_of_its_clamp():
     edges = [np.linspace(-300.0, 300.0, 6) for _ in range(8 * len(sigmas))]
     args = (sigmas, edges, rois, (0.9, 1.0, 1.1))
     got = make_bag_device(img, mask, *args, dtype=torch.float64, device=CPU)
-    # the host clamp's mask, as make_bag_device staged it before; and the
-    # same mask as 0/1 labels
-    clamped = make_bag_device(img, _clamped_mask(mask), *args,
+    # the clamped mask, as make_bag_device staged it before; and the same
+    # mask as 0/1 labels
+    clamped = make_bag_device(img, _host_clamp(mask).numpy(), *args,
                               dtype=torch.float64, device=CPU)
     labels = make_bag_device(img, (mask > 0).astype(np.uint8), *args,
                              dtype=torch.float64, device=CPU)
@@ -167,7 +172,7 @@ def test_the_ring_stages_image_and_mask_to_the_bit(cuda, case):
                    torch.from_numpy(np.ascontiguousarray(arr)).to(cuda))
     got_img, got_mask = _device_inputs(img, mask, torch.float32, cuda)
     _same_bits(got_img, torch.from_numpy(np.ascontiguousarray(img)).to(cuda))
-    _same_bits(got_mask, torch.from_numpy(_clamped_mask(mask)).to(cuda))
+    _same_bits(got_mask, _host_clamp(mask).to(cuda))
 
 
 @pytest.mark.gpu
@@ -178,7 +183,7 @@ def test_the_card_clamps_the_mask_to_the_host_clamp_to_the_bit(cuda, dtype):
     img = np.zeros(mask.shape, np.float32)
     _, got = _device_inputs(img, mask, torch.float32, cuda)
     assert got.device.type == "cuda"
-    _same_bits(got, torch.from_numpy(_clamped_mask(mask)))
+    _same_bits(got, _host_clamp(mask))
 
 
 @pytest.mark.gpu
