@@ -12,8 +12,9 @@ Two forms, as in ife_tpu:
     native library (numpy searchsorted/bincount for other dtypes);
   * make_bag_device bins on the device: one histogram_boxes call per scale
     and ROI size class, which on the card is one launch of the histogram
-    kernel for every ROI of the class; only the (n_rois, 8, bins) frequency
-    block returns to the host.
+    kernel for every ROI of the class, its frequencies written into a bag
+    on the device; the bag returns to the host once, at the end of the
+    call.
 
 make_bag_dense_device is MakeBagDense's dense bag on the device: an ROI at
 every foreground voxel, binned by kernels/dense_hist.py's running box sums,
@@ -188,7 +189,9 @@ def roi_feature_histograms_device(
     Args:
       feats: TUPLE of C (X, Y, Z) channel tensors, or one (X, Y, Z, C)
         volume.
-      mask: (X, Y, Z) labels; nonzero = counted.
+      mask: (X, Y, Z) labels; nonzero = counted. A bool mask is taken as
+        the weights as it is, so a caller that bins several times compares
+        its mask with 0 once.
       starts: (N, 3) int ROI start corners.
       edges: (C, E) bin edges per channel, host data (histogram_boxes
         rounds f64 edges for f32 channels).
@@ -202,7 +205,8 @@ def roi_feature_histograms_device(
     chans = (tuple(feats[..., k] for k in range(feats.shape[-1]))
              if getattr(feats, "ndim", None) == 4 else tuple(feats))
     chans = tuple(c.contiguous() for c in chans)
-    counts = histogram_boxes(chans, mask != 0, starts, size, edges)
+    weights = mask if mask.dtype == torch.bool else mask != 0
+    counts = histogram_boxes(chans, weights, starts, size, edges)
     # every masked voxel lands in one bin of channel 0: its row sum is the
     # box's masked-voxel count, exact in f32 below 2^24 as ife_tpu's f32
     # sum of the 0/1 mask
@@ -220,6 +224,46 @@ def _size_classes(rois: Sequence[ROI]):
     for j, r in enumerate(rois):
         classes.setdefault(r.size, []).append(j)
     return list(classes.items())
+
+
+def _bag_classes(rois: Sequence[ROI], device: torch.device):
+    """_size_classes for a bag made on `device`: [(size, starts, rows)],
+    starts the class's (n, 3) int64 corners on the host, rows its rows of
+    the bag as an int64 tensor on `device` (every class's in one copy that
+    does not wait for the card: from page-locked memory there)."""
+    starts = np.asarray([r.index for r in rois], np.int64).reshape(-1, 3)
+    classes = _size_classes(rois)
+    rows = torch.from_numpy(np.asarray(
+        [j for _, idxs in classes for j in idxs], np.int64))
+    if device.type == "cuda":
+        rows = rows.pin_memory()
+    rows = rows.to(device, non_blocking=True)
+    return [(size, starts[idxs], at) for (size, idxs), at in
+            zip(classes, rows.split([len(idxs) for _, idxs in classes]))]
+
+
+def _bin_into(bag, feats, weights, classes, edges, cols):
+    """One scale's frequencies, each size class's written into its rows of
+    the bag's columns `cols` on the device."""
+    for size, starts, rows in classes:
+        with span("bag.bin", device=bag.device, work=len(starts)):
+            freqs = roi_feature_histograms_device(feats, weights, starts,
+                                                  edges, size)
+        bag[rows, cols] = freqs.reshape(len(starts), -1)
+
+
+def _fetch_bag(bag: torch.Tensor) -> np.ndarray:
+    """The f32 bag as the f64 host array callers get (the widening is
+    exact): from the card one copy into page-locked memory, the call's one
+    wait for the card, then the widening into a fresh array on the host's
+    threads (on an NVIDIA H100's host the fastest, in turns, of this, the
+    widening on the card before a pageable copy, and numpy's widening)."""
+    host = bag
+    if bag.is_cuda:
+        host = torch.empty(bag.shape, dtype=bag.dtype, pin_memory=True)
+        host.copy_(bag, non_blocking=True)
+        torch.cuda.current_stream(bag.device).synchronize()
+    return torch.empty(bag.shape, dtype=torch.float64).copy_(host).numpy()
 
 
 def make_bag_device(
@@ -240,33 +284,38 @@ def make_bag_device(
     already on the target device (used in place, the same bag to the bit
     as from the same scan on the host) or host arrays.
 
+    The bag is made on the device (n_rois x 4 KiB at 32 bins and 4 scales)
+    and fetched once, after the last scale's binning is queued: the host
+    waits for the card once a call, and does the per-ROI bookkeeping while
+    the card takes the first scale's features.
+
     Spans (utils.profiling.span, recorded under torch.profiler): "bag",
     the call; "bag.stage", the inputs' staging (_device_inputs:
     "bag.stage.h2d" over "bag.stage.pinned"; for a scan on the device only
-    the mask's clamp); per scale and size class
-    "bag.bin", the binning, and "bag.fetch", the host waiting for its
-    frequencies. Only "bag.bin" records device events: the others are read
-    on the host's clock."""
-    classes = _size_classes(rois)
+    the mask's clamp); per scale and size class "bag.bin", the binning;
+    once a call "bag.fetch" (work: the ROIs), the host waiting for the
+    bag. Only "bag.bin" records device events: the others are read on the
+    host's clock."""
     hist_size = _check_hist_spec(hist_edges, NUM_FEATURES * len(sigmas))
     dev = default_device(device)
+    ncols = hist_size * NUM_FEATURES * len(sigmas)
     with span("bag", work=len(rois)):
         with span("bag.stage"):
             img, msk = _scan_inputs(image, mask, dtype, dev)
-        starts_np = np.asarray([r.index for r in rois],
-                               np.int64).reshape(-1, 3)
-        bag = np.zeros((len(rois), hist_size * NUM_FEATURES * len(sigmas)),
-                       dtype=np.float64)
-        for sigma, edges, cols in _scales(sigmas, hist_edges, hist_size):
+        scales = _scales(sigmas, hist_edges, hist_size)
+        sigma, edges, cols = next(scales)
+        feats = features8_auto_channels(img, msk, sigma, tuple(spacing))
+        # the bookkeeping, behind the first scale's features on the card
+        weights = msk != 0
+        bag = torch.empty((len(rois), ncols), dtype=torch.float32,
+                          device=dev)
+        classes = _bag_classes(rois, dev)
+        _bin_into(bag, feats, weights, classes, edges, cols)
+        for sigma, edges, cols in scales:
             feats = features8_auto_channels(img, msk, sigma, tuple(spacing))
-            for size, idxs in classes:
-                with span("bag.bin", device=dev, work=len(idxs)):
-                    freqs = roi_feature_histograms_device(
-                        feats, msk, starts_np[idxs], edges, size)
-                with span("bag.fetch", work=len(idxs)):
-                    bag[idxs, cols] = (freqs.cpu().numpy().astype(np.float64)
-                                       .reshape(len(idxs), -1))
-    return bag
+            _bin_into(bag, feats, weights, classes, edges, cols)
+        with span("bag.fetch", work=len(rois)):
+            return _fetch_bag(bag)
 
 
 def make_bag_dense_device(

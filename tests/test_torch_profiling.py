@@ -282,18 +282,20 @@ def test_make_bag_device_records_its_span_tree(store, tmp_path):
     recs = store.records
     tree = [(r.name, recs[r.parent].name if r.parent is not None else None)
             for r in recs]
-    per_class = [("bag.bin", "bag"), ("bag.fetch", "bag")]
     # the mask's clamp runs on the device, inside the copies' span: no host
     # clamp to time; of the bytes staged none go through the page-locked
-    # ring on the CPU
+    # ring on the CPU; the bag is binned per scale and size class on the
+    # device and fetched once, at the end
     assert tree == [("bag", None), ("bag.stage", "bag"),
                     ("bag.stage.h2d", "bag.stage"),
-                    ("bag.stage.pinned", "bag.stage.h2d")] + per_class * 4
+                    ("bag.stage.pinned", "bag.stage.h2d")] + [
+                        ("bag.bin", "bag")] * 4 + [("bag.fetch", "bag")]
     assert all(r.request == 0 for r in recs)
     assert recs[0].work == len(rois)
     assert recs[2].work == img.nbytes + mask.nbytes
     assert recs[3].work == 0
-    assert [r.work for r in recs[4:]] == [2, 2, 1, 1] * 2
+    assert [r.work for r in recs[4:8]] == [2, 1] * 2
+    assert recs[8].work == len(rois)
 
     # each span is a user_annotation of the chrome trace, inside "outer"
     events = _chrome_events(prof, tmp_path)

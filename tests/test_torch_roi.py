@@ -168,6 +168,25 @@ def test_bags_equal_ife_tpu_in_f64(scan, spec, fn):
     np.testing.assert_allclose(sums, 1.0, rtol=1e-6)
 
 
+@pytest.mark.parametrize("fn", ["make_bag", "make_bag_device"])
+@pytest.mark.parametrize("case", ["unmasked_roi", "no_rois"])
+def test_unmasked_rois_and_no_rois_equal_ife_tpu(scan, spec, fn, case):
+    # an ROI in the sphere's corner holds no masked voxel: a NaN row in both
+    img, mask = scan
+    rois = ([] if case == "no_rois" else
+            _mixed_rois(mask)[:3] + [TG.ROI((0, 0, 0), (4, 4, 4))]
+            + _mixed_rois(mask)[3:])
+    got = getattr(TB, fn)(img, mask, SIGMAS, spec, rois, spacing=SPACING,
+                          dtype=torch.float64, device="cpu")
+    want = getattr(JB, fn)(img, mask, SIGMAS, spec, rois, spacing=SPACING,
+                           dtype=jnp.float64)
+    assert got.shape == want.shape == (len(rois), 6 * 8 * 2)
+    np.testing.assert_array_equal(got, want)
+    assert [bool(np.isnan(r).all()) for r in got] == [
+        r.index == (0, 0, 0) for r in rois]
+    assert not np.isnan(got[[r.index != (0, 0, 0) for r in rois]]).any()
+
+
 def test_device_bag_equals_host_bag_within_the_f32_division(scan, spec):
     # the device form divides in f32 (as ife_tpu's does): within 2^-23 of
     # the host form's f64 division, every entry
